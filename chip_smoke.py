@@ -7,8 +7,10 @@ Drives ``repro_torch`` end to end on the card and fails (non-zero exit)
 on any fault; it imports nothing of the JAX package.  Phases:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions; TF32 is switched off for convolutions and matmuls.
-2. build: compiles ``csrc/fedavg.cu`` with ``nvcc`` into
+   CUDA versions; TF32 is switched off for convolutions and matmuls, and
+   so is the reduced-precision reduction of bf16 matmuls.
+2. build: compiles ``csrc/fedavg.cu`` and ``csrc/flash_attention.cu``
+   with ``nvcc``, one process each, at once, into
    ``build/repro_torch/`` and times it; measures the card's
    device-to-device copy bandwidth, the practical ceiling of a fold.
 3. kernels: each fedavg CUDA kernel against its plain PyTorch version
@@ -24,9 +26,34 @@ on any fault; it imports nothing of the JAX package.  Phases:
    same path at reduced width on the card and on the CPU (the kernels'
    plain versions) must give the same params within ``PARITY_ATOL``,
    and a run with one update planted twice must not.
-6. summary: a ``{"kernels": [...]}`` line (phase 3's rows at the main
-   path's shapes; the burst timed again at the lazy round's K), the device line, and the
-   last line ``{"ok": true, "device": {...}}``.
+6. flash: the flash-attention CUDA kernel against its plain version
+   (``attention_ref``) at the serve path's shape (B = 4, S = 2000, 24
+   query heads over 8 KV heads, D = 128) in bf16 and fp32, and at the
+   four shapes of the JAX package's kernel test; one ``flash_case``
+   JSON line each, with the library call (``scaled_dot_product_attention``)
+   as the yardstick and the bound at the bf16 (or fp32) peak.
+7. serve: full-width llama3.2-3b (random bf16 weights from seed 0)
+   through ``repro_torch.models``: prefill of 4 prompts of 2000 tokens
+   with ``attn_impl="pallas"``, then 32 greedy decode steps on the ring
+   KV cache (``examples/serve_decode.py``'s loop).  The flash count is
+   zeroed just before the prefill and must read 28 (one per layer) just
+   after; the logits must be finite; q, k and v of the first and last
+   layers are captured and the kernel is held against its plain version
+   on them.  Two more prefills give the warm time; one prefill and one
+   decode step under ``torch.profiler`` split the device time into the
+   attention kernel, matmuls and the rest, and give the device's idle
+   share; a decode step is set beside the time to read every weight
+   once at the measured copy rate.
+8. lm checks (reduced llama3.2-3b, fp32): on the card, prefill of S
+   tokens against prefill of S - 1 plus ``decode_step`` (the JAX
+   package's 2e-3); then the serve loop on the card (the kernel) against
+   the CPU (the plain version): greedy tokens equal and logits within
+   ``LM_PARITY_ATOL``, and the same loop with the KV heads rolled by one
+   before the kernel in the first layer must land above it.
+9. summary: a ``{"kernels": [...]}`` line (phase 3's rows at the main
+   path's shapes, the burst timed again at the lazy round's K, and the
+   flash row on the serve path's captured first-layer inputs), the
+   device line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -35,6 +62,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -43,26 +71,40 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import torch.nn.functional as F  # noqa: E402
+
 from repro_torch.api import Session  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.resnet import RESNET18  # noqa: E402
 from repro_torch.core import (Aggregator, ClientInfo, InProcObjectStore,  # noqa: E402
                               NodeState, RoundConfig, TorchEngine,
                               UpdateEnvelope, fedavg_oracle)
 from repro_torch.data import (ClientShard, build_client_datasets,  # noqa: E402
                               dirichlet_partition, synthetic_femnist)
+from repro_torch.data.synthetic import TokenTaskStream  # noqa: E402
 from repro_torch.kernels.fedavg import fedavg as fed  # noqa: E402
 from repro_torch.kernels.fedavg import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    FLASH, GLOBAL, LIB as FA_LIB)
+from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.models.resnet import build_resnet  # noqa: E402
 from repro_torch.runtime import ClientRuntime, PartialReady  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 N_RESNET18 = 11_199_486      # fp32 parameters of RESNET18
 NOMINAL_BPS = 3.35e12        # H100 SXM HBM3, NVIDIA's data sheet
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12          # H100 SXM bf16 dense tensor cores
 RTOL = {"eager_accumulate": 1e-6, "fedavg_accumulate_k": 1e-5,
         "fedavg_reduce": 1e-5}
 PARITY_ATOL = 3e-4           # card vs CPU params, phase 5
 CLIENT_LR = 0.01             # the paper's client SGD (§6.2: lr 0.01, batch 32)
+#: flash kernel vs its plain version, rtol = atol: the JAX package's
+#: kernel test (tests/test_kernels.py:134), at every shape
+FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "llama3.2-3b", 4, 2000, 32
+LM_PARITY_ATOL = 2e-3        # card vs CPU logits, phase 8
 
 
 def log(*args) -> None:
@@ -365,6 +407,304 @@ def phase_parity():
                              f"{planted:.3e}, inside {PARITY_ATOL}")
 
 
+def visible_pairs(S: int, window: int) -> int:
+    """(i, j) pairs a causal attention of length S computes: what the
+    kernel must do, whatever tiles it visits."""
+    if window == GLOBAL:
+        return S * (S + 1) // 2
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def flash_row(label, q, k, v, window):
+    """The flash kernel on (q, k, v) against its plain version, timed
+    beside the library's attention on the same inputs."""
+    B, S, K, G, D = q.shape
+    Dv = v.shape[-1]
+    H = K * G
+    scale = D ** -0.5
+    kw = dict(window=window, causal=True, scale=scale)
+    run = lambda: fa_ops.flash_attention(q, k, v, impl="cuda", **kw)
+    plain = lambda: fa_ops.flash_attention(q, k, v, impl="torch", **kw)
+    n0 = FLASH.launches
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if FLASH.launches != n0 + 1:
+        raise AssertionError(f"flash[{label}]: the kernel did not launch")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash[{label}]: non-finite output")
+    tol = FLASH_TOL[q.dtype]
+    check_close(f"flash[{label}]", got.float(), want.float(), tol)
+    max_abs, max_rel = errors(got.float(), want.float())
+    del got, want
+    qh = q.reshape(B, S, H, D).transpose(1, 2).contiguous()
+    kh = k.transpose(1, 2).contiguous()
+    vh = v.transpose(1, 2).contiguous()
+    if window == GLOBAL:
+        library = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True, scale=scale)
+    else:
+        i = torch.arange(S, device=q.device)
+        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        library = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=band, enable_gqa=True, scale=scale)
+    esz = q.element_size()
+    nbytes = esz * (q.numel() + k.numel() + v.numel() + B * S * H * Dv)
+    flops = 2 * B * H * visible_pairs(S, window) * (D + Dv)
+    peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    reps = 25 if S <= 256 else 10
+    return {
+        "case": label, "dtype": str(q.dtype).replace("torch.", ""),
+        "shape": [B, S, K, G, D, Dv], "window": window, "tol": tol,
+        "max_abs_err": max_abs, "max_rel_err": max_rel,
+        "ms": time_ms(run, reps=reps), "plain_ms": time_ms(plain, reps=reps),
+        "library_ms": time_ms(library, reps=reps),
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": max(nbytes / NOMINAL_BPS, flops / peak) * 1e3,
+        "bound_by": ("bytes" if nbytes / NOMINAL_BPS >= flops / peak
+                     else "operations"),
+    }
+
+
+def phase_flash():
+    """The flash kernel on random inputs: the serve path's shape in bf16
+    and fp32, and the JAX package's four kernel-test shapes."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = [("path", 4, 2000, 8, 3, 128, GLOBAL),
+             ("test0", 1, 128, 1, 1, 32, GLOBAL),
+             ("test1", 2, 256, 2, 3, 64, GLOBAL),
+             ("test2", 1, 256, 4, 1, 64, 64),
+             ("test3", 2, 192, 2, 2, 32, 16)]
+    rows = []
+    for label, B, S, K, G, D, window in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            mk = lambda *shape: torch.randn(shape, generator=g,
+                                            device="cuda").to(dtype)
+            row = flash_row(label, mk(B, S, K, G, D), mk(B, S, K, D),
+                            mk(B, S, K, D), window)
+            log("flash_case " + json.dumps(row))
+            rows.append(row)
+    return rows
+
+
+@contextlib.contextmanager
+def flash_calls(fn):
+    """Route the model's calls of ``ops.flash_attention`` through
+    ``fn(i, q, k, v, **kw)`` (i counts the calls from 0)."""
+    orig = fa_ops.flash_attention
+    n = [0]
+
+    def wrapped(q, k, v, *args, **kw):
+        i = n[0]
+        n[0] += 1
+        return fn(i, orig, q, k, v, *args, **kw)
+
+    fa_ops.flash_attention = wrapped
+    try:
+        yield n
+    finally:
+        fa_ops.flash_attention = orig
+
+
+def serve(model, params, prompts, steps, device):
+    """``examples/serve_decode.py``'s loop: prefill, then greedy decode
+    on the ring cache.  -> (logits of every step (B, 1 + steps, V),
+    tokens (B, 1 + steps), prefill s, per-step s, caches)."""
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    S = prompts.shape[1]
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": prompts})
+    sync()
+    prefill_s = time.perf_counter() - t0
+    out, toks, lat = [logits], [logits[:, -1].argmax(-1)[:, None]], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(params, toks[-1], caches, S + i)
+        sync()
+        lat.append(time.perf_counter() - t0)
+        out.append(logits)
+        toks.append(logits[:, -1].argmax(-1)[:, None])
+    return torch.cat(out, 1), torch.cat(toks, 1), prefill_s, lat, caches
+
+
+def device_time_split(fn):
+    """``fn()`` once under torch.profiler: device time (ms) of the flash
+    kernel, of matrix products and of everything else, the kernel count,
+    the wall time and the device's idle share of it."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = {"flash_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    top, kernels = [], 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        name = e.key.lower()
+        if "flash_fwd_kernel" in name:
+            split["flash_ms"] += ms
+        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
+            split["matmul_ms"] += ms
+        else:
+            split["other_ms"] += ms
+        kernels += e.count
+        top.append((ms, e.key[:80], e.count))
+    busy = sum(split.values())
+    split.update(kernels=kernels, wall_ms=wall * 1e3, busy_ms=busy,
+                 idle_share=1.0 - busy / (wall * 1e3),
+                 top=sorted(top, reverse=True)[:6])
+    return split
+
+
+def phase_serve(copy_bps):
+    """Full-width llama3.2-3b: prefill 4 x 2000 tokens through the flash
+    kernel, then 32 greedy decode steps on the ring cache."""
+    cfg = ARCHS[LM_ARCH]
+    model = build_model(cfg, ModelOptions(
+        attn_impl="pallas", remat=False,
+        prefill_cache_capacity=LM_PROMPT + LM_STEPS + 8))
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(l.numel() for l in tree_leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{LM_ARCH} has {n_params} params, the config "
+                             f"counts {cfg.param_count()}")
+    prompts = torch.from_numpy(TokenTaskStream(
+        cfg.vocab_size, LM_PROMPT, seed=1).batch(LM_BATCH)["tokens"]).cuda()
+    last = cfg.num_layers - 1
+    captured = {}
+
+    def capture(i, orig, q, k, v, *args, **kw):
+        if i in (0, last):
+            captured[i] = (q.clone(), k.clone(), v.clone())
+        return orig(q, k, v, *args, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    with flash_calls(capture):
+        FLASH.launches = 0
+        logits, toks, prefill_s, lat, caches = serve(
+            model, params, prompts, LM_STEPS, torch.device("cuda"))
+        launches = FLASH.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.num_layers:
+        raise AssertionError(f"the prefill launched the flash kernel "
+                             f"{launches} times, not {cfg.num_layers}")
+    if tuple(logits.shape) != (LM_BATCH, 1 + LM_STEPS, cfg.vocab_size):
+        raise AssertionError(f"logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits")
+    lat_ms = sorted(x * 1e3 for x in lat)
+    warm_s = min(serve(model, params, prompts, 0, torch.device("cuda"))[2]
+                 for _ in range(2))
+    row = {
+        "arch": LM_ARCH, "params": n_params, "dtype": cfg.dtype,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "steps": LM_STEPS,
+        "init_s": init_s, "prefill_cold_ms": prefill_s * 1e3,
+        "prefill_ms": warm_s * 1e3,
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / warm_s,
+        "decode_first_ms": lat[0] * 1e3,
+        "decode_p50_ms": float(np.percentile(lat_ms, 50)),
+        "decode_p99_ms": float(np.percentile(lat_ms, 99)),
+        "decode_tok_s": LM_BATCH * LM_STEPS / sum(lat),
+        "peak_mem_gb": peak / 1e9, "flash_launches": launches,
+        "tokens_0": toks[0, :8].tolist()}
+    log("serve " + json.dumps(row))
+    log("serve_prefill_device " + json.dumps(device_time_split(
+        lambda: model.prefill(params, {"tokens": prompts}))))
+    tok = toks[:, -1:]
+    split = device_time_split(lambda: model.decode_step(
+        params, tok, caches, LM_PROMPT + LM_STEPS))
+    # the least a decode step can take: every weight read once
+    split["weight_read_ms"] = 2 * n_params / copy_bps * 1e3
+    log("serve_decode_device " + json.dumps(split))
+    rows = [flash_row(f"serve_layer{i}", q, k, v, GLOBAL)
+            for i, (q, k, v) in sorted(captured.items())]
+    for r in rows:
+        log("flash_case " + json.dumps(r))
+    del params, logits, caches
+    torch.cuda.empty_cache()
+    return row, launches, rows[0]
+
+
+def small_lm(steps):
+    cfg = ARCHS[LM_ARCH].reduced(dtype="float32")
+    model = build_model(cfg, ModelOptions(
+        attn_impl="pallas", remat=False,
+        prefill_cache_capacity=150 + steps + 8))
+    prompts = torch.from_numpy(TokenTaskStream(
+        cfg.vocab_size, 150, seed=1).batch(LM_BATCH)["tokens"])
+    return model, model.init(seed=0, device="cpu"), prompts
+
+
+def phase_lm_checks():
+    """Reduced llama3.2-3b in fp32 (150-token prompts: three query tiles,
+    the last one ragged).  Decode against the full forward on the card,
+    then the serve loop on the card against the CPU, and against the
+    card with a planted GQA fault."""
+    steps = 8
+    model, params, prompts = small_lm(steps)
+    cuda = torch.device("cuda")
+    p_card = tree_map(lambda t: t.to(cuda), params)
+    full, _ = model.prefill(p_card, {"tokens": prompts.to(cuda)})
+    _, caches = model.prefill(p_card, {"tokens": prompts[:, :-1].to(cuda)})
+    dec, _ = model.decode_step(p_card, prompts[:, -1:].to(cuda), caches,
+                               prompts.shape[1] - 1)
+    torch.cuda.synchronize()
+    check_close("decode_step vs prefill", dec, full, 2e-3)
+    dec_err = float((dec - full).abs().max())
+
+    cpu_logits, cpu_toks, *_ = serve(model, params, prompts, steps,
+                                     torch.device("cpu"))
+    card_logits, card_toks, *_ = serve(model, p_card, prompts.to(cuda),
+                                       steps, cuda)
+
+    def roll_first(i, orig, q, k, v, *args, **kw):
+        if i == 0:      # the KV heads of the first layer, one head off
+            k, v = k.roll(1, dims=2), v.roll(1, dims=2)
+        return orig(q, k, v, *args, **kw)
+
+    with flash_calls(roll_first) as n:
+        bad_logits, bad_toks, *_ = serve(model, p_card, prompts.to(cuda),
+                                         steps, cuda)
+    if n[0] == 0:
+        raise AssertionError("the planted fault never fired")
+    with flash_calls(roll_first):     # the same fault in the plain version
+        bad_cpu, bad_cpu_toks, *_ = serve(model, params, prompts, steps,
+                                          torch.device("cpu"))
+    sound = float((card_logits.cpu() - cpu_logits).abs().max())
+    planted = float((bad_logits.cpu() - cpu_logits).abs().max())
+    both_planted = float((bad_logits.cpu() - bad_cpu).abs().max())
+    same_tokens = bool((card_toks.cpu() == cpu_toks).all())
+    log("lm_parity " + json.dumps({
+        "decode_vs_prefill_max_abs": dec_err, "max_abs_diff": sound,
+        "planted_fault_max_abs_diff": planted,
+        "planted_card_vs_planted_cpu": both_planted,
+        "planted_same_tokens": bool((bad_toks.cpu() == bad_cpu_toks).all()),
+        "atol": LM_PARITY_ATOL, "same_greedy_tokens": same_tokens,
+        "steps": steps}))
+    if not both_planted <= LM_PARITY_ATOL:
+        raise AssertionError(f"with the planted fault, card vs CPU logits: "
+                             f"{both_planted:.3e} > {LM_PARITY_ATOL}")
+    if not same_tokens:
+        raise AssertionError("card and CPU chose different greedy tokens")
+    if not sound <= LM_PARITY_ATOL:
+        raise AssertionError(f"card vs CPU logits: {sound:.3e} > "
+                             f"{LM_PARITY_ATOL}")
+    if not planted > LM_PARITY_ATOL:
+        raise AssertionError(f"rolled KV heads moved the logits by "
+                             f"{planted:.3e}, inside {LM_PARITY_ATOL}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -378,13 +718,20 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the JAX reference accumulates bf16 products in fp32
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = False
     log(f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+        f"cuda.matmul.allow_tf32={matmul.allow_tf32} "
+        f"allow_bf16_reduced_precision_reduction="
+        f"{matmul.allow_bf16_reduced_precision_reduction}")
 
-    # phase 2: build + copy bandwidth
+    # phase 2: build (one nvcc per source, all at once) + copy bandwidth
     t0 = time.perf_counter()
-    lib = fed.build()
-    log(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda lib: lib.build(), (fed.LIB, FA_LIB)))
+    log(f"build: {', '.join(str(l.relative_to(ROOT)) for l in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s")
     copy_bps = copy_bandwidth()
     log(f"copy bandwidth: {copy_bps / 1e9:.1f} GB/s device-to-device "
         f"(nominal {NOMINAL_BPS / 1e9:.0f})")
@@ -399,7 +746,12 @@ def main() -> int:
     rounds, launches, k_main = phase_round()
     phase_parity()
 
-    # phase 6: summary at the main path's shapes (f32 wire; the lazy
+    # phases 6-8: the flash kernel, the serve path, the LM checks
+    phase_flash()
+    serve_row, flash_launches, flash_main = phase_serve(copy_bps)
+    phase_lm_checks()
+
+    # phase 9: summary at the main paths' shapes (f32 wire; the lazy
     # round's largest burst for fedavg_accumulate_k): the phase-3 rows
     # where they are those shapes
     main_k = {"eager_accumulate": 1, "fedavg_accumulate_k": max(k_main, 2),
@@ -421,13 +773,24 @@ def main() -> int:
             "K": row["K"], "N": row["N"],
             "bound_copy_ms": row["bound_copy_ms"]})
     kernel_ms = sum(launches[o["name"]] * o["ms"] for o in out) / 1e3
+    out.append({
+        "name": FLASH.name, "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": FLASH.replaces, "launches": flash_launches,
+        **{k: flash_main[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape", "dtype")}})
     log("summary " + json.dumps({
         "rounds": len(rounds),
         "client_train_s": sum(r["trace_client_train_s"] for r in rounds),
         "agg_exec_s": sum(r["agg_exec_s"] for r in rounds),
         "kernel_s_est": kernel_ms,
         "staging_s_per_fold": stage_s,
-        "wall_s": sum(r["wall_s"] for r in rounds)}))
+        "wall_s": sum(r["wall_s"] for r in rounds),
+        "serve_prefill_ms": serve_row["prefill_ms"],
+        "serve_decode_p50_ms": serve_row["decode_p50_ms"],
+        "flash_ms_est": flash_launches * flash_main["ms"]}))
     log(json.dumps({"kernels": out}))
     log(card)
     log(json.dumps({"ok": True, "device": {

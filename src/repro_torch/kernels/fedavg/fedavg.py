@@ -1,11 +1,9 @@
-"""Build, load and launch the fedavg CUDA kernels (``csrc/fedavg.cu``).
+"""Launch the fedavg CUDA kernels (``csrc/fedavg.cu``).
 
-The source is compiled at first use with ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface, loaded with ``ctypes``.  The
-library's name carries a hash of the source and the flags, so an edited
-kernel is rebuilt and an unchanged one is loaded as it is.  Nothing
-here runs at import: a host without ``nvcc`` or a card imports the
-module and uses the plain versions in ``ref.py``.
+The source is built at first use and loaded with ``ctypes`` by
+``kernels/build.py``.  Nothing here runs at import: a host without
+``nvcc`` or a card imports the module and uses the plain versions in
+``ref.py``.
 
 Each launch wrapper checks device, dtype, shape and contiguity, raises
 on what the kernel does not take, launches on PyTorch's current stream
@@ -13,104 +11,28 @@ without synchronising, and counts its launches in ``launches``.
 """
 from __future__ import annotations
 
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
+import ctypes
 from pathlib import Path
-from typing import Any, Optional
 
 import numpy as np
 import torch
 
-_SRC = Path(__file__).with_name("csrc") / "fedavg.cu"
-#: the checkout's root (src/repro_torch/kernels/fedavg/ -> 4 up)
-_ROOT = Path(__file__).resolve().parents[4]
-BUILD_DIR = _ROOT / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from repro_torch.kernels.build import DTYPE_CODES, CudaKernel, CudaLibrary
 
-#: wire dtype -> the kernel's dtype code
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_p, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+LIB = CudaLibrary(
+    Path(__file__).with_name("csrc") / "fedavg.cu", "fedavg", {
+        "fedavg_eager_accumulate": [_p, _p, _i64, _i32, ctypes.c_float, _p],
+        "fedavg_accumulate_k": [_p, _p, _p, _i64, _i64, _i32, _p],
+        "fedavg_reduce": [_p, _p, _p, _i64, _i64, _i32, _p],
+    })
+build = LIB.build
 
-_lib: Optional[Any] = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the fedavg CUDA kernels are "
-                           "built from source at first use")
-    return path
-
-
-def library_path() -> Path:
-    """Where the built library for the current source and flags lives."""
-    h = hashlib.sha256(_SRC.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfedavg-{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile ``csrc/fedavg.cu`` unless this source is already built."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)          # atomic: a concurrent build wins whole
-    return out
-
-
-def _load() -> Any:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            import ctypes
-
-            lib = ctypes.CDLL(str(build()))
-            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            lib.fedavg_eager_accumulate.argtypes = [p, p, i64, i32,
-                                                    ctypes.c_float, p]
-            lib.fedavg_accumulate_k.argtypes = [p, p, p, i64, i64, i32, p]
-            lib.fedavg_reduce.argtypes = [p, p, p, i64, i64, i32, p]
-            for fn in (lib.fedavg_eager_accumulate, lib.fedavg_accumulate_k,
-                       lib.fedavg_reduce):
-                fn.restype = i32
-            _lib = lib
-        return _lib
-
-
-class CudaKernel:
-    """One C entry of the library plus its launch count."""
-
-    def __init__(self, name: str, symbol: str, replaces: str):
-        self.name = name
-        self.symbol = symbol
-        self.replaces = replaces      # the TPU kernel, file:line
-        self.launches = 0
-
-    def launch(self, *args) -> None:
-        rc = getattr(_load(), self.symbol)(*args)
-        if rc != 0:
-            raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
-        self.launches += 1
-
-
-EAGER = CudaKernel("eager_accumulate", "fedavg_eager_accumulate",
+EAGER = CudaKernel("eager_accumulate", LIB, "fedavg_eager_accumulate",
                    "src/repro/kernels/fedavg/fedavg.py:112")
-ACCUMULATE_K = CudaKernel("fedavg_accumulate_k", "fedavg_accumulate_k",
+ACCUMULATE_K = CudaKernel("fedavg_accumulate_k", LIB, "fedavg_accumulate_k",
                           "src/repro/kernels/fedavg/fedavg.py:82")
-REDUCE = CudaKernel("fedavg_reduce", "fedavg_reduce",
+REDUCE = CudaKernel("fedavg_reduce", LIB, "fedavg_reduce",
                     "src/repro/kernels/fedavg/fedavg.py:40")
 KERNELS = (EAGER, ACCUMULATE_K, REDUCE)
 

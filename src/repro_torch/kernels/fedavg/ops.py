@@ -17,6 +17,7 @@ from typing import Any, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.build import use_kernel as _use_kernel
 from repro_torch.kernels.fedavg import fedavg as _cuda
 from repro_torch.kernels.fedavg.ref import (
     eager_accumulate_ref,
@@ -24,19 +25,6 @@ from repro_torch.kernels.fedavg.ref import (
     fedavg_reduce_ref,
 )
 from repro_torch.tree import tree_flatten, tree_unflatten
-
-IMPLS = ("auto", "cuda", "torch")
-
-
-def _use_kernel(impl: str, t: torch.Tensor) -> bool:
-    if impl == "auto":
-        return t.device.type == "cuda"
-    if impl == "cuda":
-        return True
-    if impl == "torch":
-        return False
-    raise ValueError(f"unknown impl {impl!r} (expected one of {IMPLS})")
-
 
 def fedavg_reduce(updates: torch.Tensor, weights: torch.Tensor,
                   *, impl: str = "auto") -> torch.Tensor:

@@ -1,0 +1,129 @@
+"""Model facade: the JAX package's ``LM`` interface for serving.
+
+``LM`` exposes what the serving path needs:
+
+  init(seed, device=None) -> params                 (on the card by default)
+  prefill(params, batch) -> (last-token logits, caches)
+  init_decode(batch, capacity, device=None) -> caches
+  decode_step(params, tokens, caches, pos) -> (logits, caches)
+
+Batches are dicts: prefill ``{"tokens": (B,S) int}``; decode takes
+tokens (B,1), the caches and the absolute position ``pos``.  Caches are
+written in place by ``decode_step`` (see ``models/attention.py``).
+``loss`` (training) and the encoder / modality-frontend configs are not
+ported yet and are refused by name.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import (dense_init, init_embedding,
+                                       init_rmsnorm, rmsnorm)
+from repro_torch.models.sharded_vocab import (decode_logits, embed_lookup,
+                                              padded_vocab)
+from repro_torch.models.transformer import ModelOptions
+
+
+class LM:
+    def __init__(self, cfg: ArchConfig, opts: Optional[ModelOptions] = None):
+        if cfg.encoder_layers or cfg.frontend:
+            raise NotImplementedError(
+                f"{cfg.name}: encoder and modality-frontend configs are not "
+                "ported yet (ROADMAP A.6)")
+        self.cfg = cfg
+        self.opts = opts or ModelOptions()
+        self.specs = tfm.layer_specs(cfg)
+        for _, spec in tfm.segment_specs(self.specs):
+            tfm.check_block(cfg, spec)
+        self.dtype = getattr(torch, cfg.dtype)
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int, device: Any = None) -> Dict[str, Any]:
+        """Random params from ``seed``, drawn on ``device`` (None: the card)."""
+        cfg = self.cfg
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        vp = padded_vocab(cfg.vocab_size)
+        params: Dict[str, Any] = {
+            "embed": init_embedding(gen, vp, cfg.d_model, self.dtype),
+            "segments": tfm.init_stack(gen, cfg, self.specs, self.dtype),
+            "final_norm": init_rmsnorm(cfg.d_model, self.dtype, gen.device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, (cfg.d_model, vp), self.dtype)
+        return params
+
+    # ------------------------------------------------------------------
+    def _unembed_w(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embed"], True
+        return params["lm_head"], False
+
+    def _embed(self, params, tokens) -> torch.Tensor:
+        table = params["embed"]
+        tokens = torch.as_tensor(tokens, device=table.device)
+        x = embed_lookup(table, tokens, self.opts.vocab_axis)
+        # the JAX package multiplies by a weakly typed scalar, which takes
+        # the table's dtype before the product
+        mult = torch.full((), math.sqrt(self.cfg.d_model), dtype=x.dtype,
+                          device=x.device)
+        return (x * mult).to(self.dtype)
+
+    def _forward(self, params, tokens, collect_cache=False):
+        x = self._embed(params, tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux, caches = tfm.apply_stack(
+            self.cfg, params["segments"], self.specs, self.opts,
+            x, positions, collect_cache=collect_cache,
+        )
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        return x, aux, caches
+
+    # ------------------------------------------------------------------
+    def loss(self, params, batch):
+        raise NotImplementedError("LM training (loss and its backward) is "
+                                  "not ported yet (ROADMAP A.6, A.7)")
+
+    # ------------------------------------------------------------------
+    def prefill(self, params, batch):
+        """-> (logits (B,1,V) fp32 of the last position, caches)."""
+        if batch.get("frontend") is not None:
+            raise NotImplementedError("frontend embeddings are not ported "
+                                      "yet (ROADMAP A.6)")
+        hidden, _, caches = self._forward(params, batch["tokens"],
+                                          collect_cache=True)
+        w, tied = self._unembed_w(params)
+        logits = decode_logits(
+            hidden[:, -1:], w, vocab=self.cfg.vocab_size, tied=tied,
+            model_axis=self.opts.vocab_axis,
+        )
+        return logits, caches
+
+    # ------------------------------------------------------------------
+    def init_decode(self, batch: int, capacity: int, device: Any = None):
+        """Empty ring caches on ``device`` (None: the card)."""
+        return tfm.init_stack_cache(self.cfg, self.specs, batch, capacity,
+                                    self.dtype, resolve_device(device))
+
+    def decode_step(self, params, tokens, caches, pos):
+        """tokens (B,1) -> (logits (B,1,V) fp32, caches written in place)."""
+        x = self._embed(params, tokens)
+        x, new_caches = tfm.decode_stack(
+            self.cfg, params["segments"], self.specs, self.opts, x, caches,
+            pos)
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        w, tied = self._unembed_w(params)
+        logits = decode_logits(
+            x, w, vocab=self.cfg.vocab_size, tied=tied,
+            model_axis=self.opts.vocab_axis,
+        )
+        return logits, new_caches
+
+
+def build_model(cfg: ArchConfig, opts: Optional[ModelOptions] = None) -> LM:
+    return LM(cfg, opts)

@@ -27,6 +27,12 @@ VERBATIM = [
     "core/hierarchy.py", "core/placement.py", "core/coordinator.py",
     "runtime/events.py", "obs/trace.py", "configs/resnet.py",
     "data/partition.py", "data/synthetic.py", "data/loader.py",
+    "configs/__init__.py", "configs/base.py", "configs/llama32_3b.py",
+    "configs/gemma3_4b.py", "configs/gemma3_12b.py",
+    "configs/h2o_danube3_4b.py", "configs/hymba_1_5b.py",
+    "configs/internvl2_26b.py", "configs/kimi_k2_1t_a32b.py",
+    "configs/deepseek_v2_lite_16b.py", "configs/falcon_mamba_7b.py",
+    "configs/seamless_m4t_large_v2.py",
 ]
 
 
@@ -102,17 +108,26 @@ def test_session_defaults_to_the_card():
         Session.open(*_tiny_session_args())
 
 
-@pytest.mark.parametrize("entry", ["init", "params_from_jax"])
+@pytest.mark.parametrize("entry", ["init", "params_from_jax", "lm_init",
+                                   "lm_init_decode", "lm_params_from_jax"])
 def test_params_default_to_the_card(entry):
+    from repro_torch.configs import ARCHS
     from repro_torch.configs.resnet import RESNET18
-    from repro_torch.convert import params_from_jax
+    from repro_torch.convert import lm_params_from_jax, params_from_jax
+    from repro_torch.models import ModelOptions, build_model
     from repro_torch.models.resnet import build_resnet
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     model = build_resnet(RESNET18.reduced())
+    lm = build_model(ARCHS["llama3.2-3b"].reduced(),
+                     ModelOptions(attn_impl="pallas", remat=False))
     make = {"init": lambda: model.init(0),
-            "params_from_jax": lambda: params_from_jax({"w": np.ones(3)})}
+            "params_from_jax": lambda: params_from_jax({"w": np.ones(3)}),
+            "lm_init": lambda: lm.init(0),
+            "lm_init_decode": lambda: lm.init_decode(1, 8),
+            "lm_params_from_jax":
+                lambda: lm_params_from_jax({"embed": np.ones((4, 2))})}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make[entry]()
 

@@ -50,10 +50,31 @@ on any fault; it imports nothing of the JAX package.  Phases:
    the CPU (the plain version): greedy tokens equal and logits within
    ``LM_PARITY_ATOL``, and the same loop with the KV heads rolled by one
    before the kernel in the first layer must land above it.
-9. summary: a ``{"kernels": [...]}`` line (phase 3's rows at the main
-   path's shapes, the burst timed again at the lazy round's K, and the
-   flash row on the serve path's captured first-layer inputs), the
-   device line, and the last line ``{"ok": true, "device": {...}}``.
+9. summary, printed last: a ``{"kernels": [...]}`` line (phase 3's
+   rows at the main path's shapes, the burst timed again at the lazy
+   round's K, the flash row on the serve path's captured first-layer
+   inputs, and phase 10's quantize rows at the fused round's largest
+   leaf), the device line, and the last line ``{"ok": true, "device":
+   {...}}``.
+10. quant: the int8 quantize and dequantize CUDA kernels against their
+   plain versions, bit for bit (q, scales, dequantized fp32 and bf16)
+   and within half a scale of the input, at the JAX package's
+   kernel-test sizes, an all-zero input, bf16 input and row widths 64
+   and 200; then at the fused round's largest leaf, the (128256, 3072)
+   fp32 embedding delta, timed against the plain versions and, for
+   dequantize, one ``torch.mul``.
+11. fused round: full-width llama3.2-3b (bf16, random params from seed
+   0) through ``FusedFLTrainer``: one hierarchical int8 round on a
+   2-pod mesh (each pod 4 sequences of 512 tokens in 2 microbatches,
+   ``attn_impl="chunked"``, ``remat=True``) with every launch count
+   zeroed just before and read just after (quantize and dequantize once
+   per leaf and pod), one ``compress="none"`` round from the same params
+   (the int8 params within 5 % relative of these), a warm int8 round,
+   and one under ``torch.profiler`` for the device split.
+12. round parity (reduced llama3.2-3b, fp32): one int8 round on the
+   card against the CPU within the two-part limit (at most 0.1 % of
+   elements over 1e-5, none over one quantization step of its block),
+   and the card with one pod's delta counted twice above it.
 """
 from __future__ import annotations
 
@@ -81,16 +102,30 @@ from repro_torch.core import (Aggregator, ClientInfo, InProcObjectStore,  # noqa
                               UpdateEnvelope, fedavg_oracle)
 from repro_torch.data import (ClientShard, build_client_datasets,  # noqa: E402
                               dirichlet_partition, synthetic_femnist)
+from repro_torch.data.loader import CohortTokenLoader  # noqa: E402
 from repro_torch.data.synthetic import TokenTaskStream  # noqa: E402
+from repro_torch.fl import compression  # noqa: E402
+from repro_torch.fl.round import (AggregationConfig,  # noqa: E402
+                                  accumulate_updates)
+from repro_torch.fl.server import init_server_state  # noqa: E402
 from repro_torch.kernels.fedavg import fedavg as fed  # noqa: E402
 from repro_torch.kernels.fedavg import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     FLASH, GLOBAL, LIB as FA_LIB)
+from repro_torch.kernels.quantize import ops as q_ops  # noqa: E402
+from repro_torch.kernels.quantize import ref as q_ref  # noqa: E402
+# the package's name ``quantize`` is the op; the wrappers' module by path
+from repro_torch.kernels.quantize.quantize import (  # noqa: E402
+    DEQUANTIZE, KERNELS as Q_KERNELS, LIB as Q_LIB, QUANTIZE,
+    dequantize_cuda, quantize_cuda)
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.models.resnet import build_resnet  # noqa: E402
-from repro_torch.runtime import ClientRuntime, PartialReady  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.runtime import (ClientRuntime, FusedFLTrainer,  # noqa: E402
+                                 PartialReady)
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,  # noqa: E402
+                              tree_unflatten)
 
 N_RESNET18 = 11_199_486      # fp32 parameters of RESNET18
 NOMINAL_BPS = 3.35e12        # H100 SXM HBM3, NVIDIA's data sheet
@@ -105,6 +140,7 @@ CLIENT_LR = 0.01             # the paper's client SGD (§6.2: lr 0.01, batch 32)
 FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "llama3.2-3b", 4, 2000, 32
 LM_PARITY_ATOL = 2e-3        # card vs CPU logits, phase 8
+FUSED_SEQ = 512              # tokens a sequence in the fused round, phase 11
 
 
 def log(*args) -> None:
@@ -705,6 +741,349 @@ def phase_lm_checks():
                              f"{planted:.3e}, inside {LM_PARITY_ATOL}")
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: the int8 quantize kernels and the fused round
+# ---------------------------------------------------------------------------
+
+
+def bits_equal(a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        view = torch.int16 if a.element_size() == 2 else torch.int32
+        a, b = a.contiguous().view(view), b.contiguous().view(view)
+    return bool(torch.equal(a, b))
+
+
+def quant_case(label, x, block):
+    """The quantize and dequantize kernels on ``x`` (flat) against their
+    plain versions: q, scales and the dequantized values (fp32 and bf16)
+    bit-equal, and |x - deq| <= s/2."""
+    n = x.numel()
+    n0 = (QUANTIZE.launches, DEQUANTIZE.launches)
+    q, s = q_ops.quantize(x, block=block, impl="cuda")
+    qr, sr = q_ops.quantize(x, block=block, impl="torch")
+    outs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        outs[dt] = (q_ops.dequantize(q, s, n, out_dtype=dt, impl="cuda"),
+                    q_ops.dequantize(q, s, n, out_dtype=dt, impl="torch"))
+    torch.cuda.synchronize()
+    if (QUANTIZE.launches, DEQUANTIZE.launches) != (n0[0] + 1, n0[1] + 2):
+        raise AssertionError(f"quant[{label}]: the kernels did not launch")
+    err = (outs[torch.float32][0] - x.float()).abs()
+    bound = s.repeat_interleave(block)[:n] / 2
+    row = {"case": label, "N": n, "block": block,
+           "dtype": str(x.dtype).replace("torch.", ""),
+           "q_equal": bits_equal(q, qr), "scales_equal": bits_equal(s, sr),
+           "deq_f32_equal": bits_equal(*outs[torch.float32]),
+           "deq_bf16_equal": bits_equal(*outs[torch.bfloat16]),
+           "max_err_over_half_scale": float((err - bound).max()),
+           "zero_rows": int((s == 1.0).sum())}
+    if not (row["q_equal"] and row["scales_equal"] and row["deq_f32_equal"]
+            and row["deq_bf16_equal"]):
+        raise AssertionError(f"quant[{label}]: kernel and plain version "
+                             f"differ: {row}")
+    if not row["max_err_over_half_scale"] <= 1e-7:
+        raise AssertionError(f"quant[{label}]: |x - deq| > s/2: {row}")
+    return row
+
+
+def phase_quant():
+    """The quantize kernels at the JAX package's kernel-test sizes, an
+    all-zero input, bf16 input and row widths 64 and 200; then at the
+    fused round's largest delta leaf, the (128256, 3072) fp32 embedding
+    (1,539,072 rows of 256), timed against the plain versions."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda n: torch.randn(n, generator=g, device="cuda") * 3
+    cases = [("n256", rnd(256), 256), ("n773", rnd(3 * 256 + 5), 256),
+             ("n100", rnd(100), 256), ("n70000", rnd(70000), 256),
+             ("zeros", torch.zeros(512, device="cuda"), 256),
+             ("bf16", rnd(3 * 256 + 5).to(torch.bfloat16), 256),
+             ("b64", rnd(64 * 37 + 9), 64), ("b200", rnd(200 * 11), 200)]
+    for label, x, block in cases:
+        log("quant_case " + json.dumps(quant_case(label, x, block)))
+
+    cfg = ARCHS[LM_ARCH]
+    x = torch.randn(cfg.vocab_size, cfg.d_model, generator=g,
+                    device="cuda") * 1e-3
+    row = quant_case("path_embedding", x.reshape(-1), 256)
+    blocks = x.view(-1, 256)
+    rows, n = blocks.shape[0], x.numel()
+    q, s = quantize_cuda(blocks)
+    deq = dequantize_cuda(q, s)
+    torch.cuda.synchronize()
+    deq_err = float((deq - q_ref.dequantize_ref(q, s)).abs().max())
+    q_err = float((q.float() - q_ref.quantize_ref(blocks)[0].float())
+                  .abs().max())
+    nbytes = 5 * n + 4 * rows          # fp32 in, int8 + scales out (or back)
+    out = {}
+    for name, run, plain, library, ops_n, err in (
+            ("quantize", lambda: quantize_cuda(blocks),
+             lambda: q_ref.quantize_ref(blocks), None, 5 * n, q_err),
+            ("dequantize", lambda: dequantize_cuda(q, s),
+             lambda: q_ref.dequantize_ref(q, s),
+             lambda: torch.mul(q, s[:, None]), n, deq_err)):
+        b_s, o_s = nbytes / NOMINAL_BPS, ops_n / FP32_FLOPS
+        out[name] = {
+            "shape": [cfg.vocab_size, cfg.d_model], "rows": rows,
+            "block": 256, "max_abs_err": err,
+            "ms": time_ms(run, reps=15), "plain_ms": time_ms(plain, reps=5),
+            "library_ms": time_ms(library, reps=15) if library else None,
+            "bytes": nbytes, "ops": ops_n,
+            "bound_ms": max(b_s, o_s) * 1e3,
+            "bound_by": "bytes" if b_s >= o_s else "operations"}
+        log(f"quant_path_{name} " + json.dumps(out[name]))
+    del x, blocks, q, s, deq
+    torch.cuda.empty_cache()
+    return row, out
+
+
+def all_kernels():
+    return (*fed.KERNELS, FLASH, *Q_KERNELS)
+
+
+def fused_split(fn):
+    """``fn()`` once under torch.profiler: device ms of the quantize and
+    dequantize kernels, of matrix products and of the rest (by kernel
+    name, each kernel counted once); the flash VJP's device ms (the
+    ``flash_vjp.*`` ranges, whose kernels are also among the matmuls and
+    the rest); the kernel count, the wall time and the idle share."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = {"quantize_ms": 0.0, "dequantize_ms": 0.0, "matmul_ms": 0.0,
+             "other_ms": 0.0}
+    flash_vjp, kernels, top = 0.0, 0, []
+    for e in prof.key_averages():
+        if e.key.startswith("flash_vjp."):
+            if e.device_type == DeviceType.CPU:
+                flash_vjp += e.device_time_total / 1e3
+            continue
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        name = e.key.lower()
+        if "dequantize_kernel" in name:
+            split["dequantize_ms"] += ms
+        elif "quantize_kernel" in name:
+            split["quantize_ms"] += ms
+        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
+            split["matmul_ms"] += ms
+        else:
+            split["other_ms"] += ms
+        kernels += e.count
+        top.append((ms, e.key[:80], e.count))
+    busy = sum(split.values())
+    split.update(flash_vjp_ms=flash_vjp, kernels=kernels, wall_ms=wall * 1e3,
+                 busy_ms=busy, idle_share=1.0 - busy / (wall * 1e3),
+                 top=sorted(top, reverse=True)[:8])
+    return split
+
+
+def round_setup(cfg, seq_len, device, compress="int8", opts=None):
+    mesh = make_debug_mesh((2, 1, 1), ("pod", "data", "model"))
+    agg = AggregationConfig(hierarchy="hierarchical", timing="eager",
+                            compress=compress, num_microbatches=2,
+                            server_opt="fedavg")
+    trainer = FusedFLTrainer(cfg, mesh, agg, opts=opts, device=device)
+    batch = CohortTokenLoader(cfg.vocab_size, seq_len=seq_len,
+                              n_cohorts=4).round_batch(8, 0)
+    return trainer, batch
+
+
+def timed_round(trainer, params, batch):
+    """One round from ``params``: -> (metrics record, wall s)."""
+    trainer.params = params
+    trainer.server_state = init_server_state("fedavg", params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = trainer.train_round(batch)
+    torch.cuda.synchronize()
+    return rec, time.perf_counter() - t0
+
+
+def phase_fused_round():
+    """Full-width llama3.2-3b (bf16, random params from seed 0): one
+    hierarchical int8 round on a 2-pod mesh, each pod 4 sequences of 512
+    tokens in 2 microbatches, then one ``compress="none"`` round from the
+    same params; the int8 params must lie within 5 % (relative) of the
+    uncompressed ones.  A second int8 round gives the warm time and a
+    third the device split."""
+    cfg = ARCHS[LM_ARCH]
+    opts = ModelOptions(attn_impl="chunked", remat=True)
+    t8, batch = round_setup(cfg, FUSED_SEQ, None, "int8", opts)
+    tn, _ = round_setup(cfg, FUSED_SEQ, None, "none", opts)
+    t0 = time.perf_counter()
+    t8.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p0 = t8.params
+    leaves = tree_leaves(p0)
+    if sum(l.numel() for l in leaves) != cfg.param_count():
+        raise AssertionError(f"{LM_ARCH}: {sum(l.numel() for l in leaves)} "
+                             f"params, the config counts {cfg.param_count()}")
+
+    def driven(trainer):
+        for k in all_kernels():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rec, wall = timed_round(trainer, p0, batch)
+        launches = {k.name: k.launches for k in all_kernels()}
+        return rec, wall, launches, torch.cuda.max_memory_allocated()
+
+    rec8, cold_s, launches8, peak8 = driven(t8)
+    p8 = t8.params
+    recn, none_s, launchesn, peakn = driven(tn)
+    pn = tn.params
+    want = 2 * len(leaves)
+    for name in (QUANTIZE.name, DEQUANTIZE.name):
+        if launches8[name] != want:
+            raise AssertionError(f"the int8 round launched {name} "
+                                 f"{launches8[name]} times, not {want} "
+                                 f"({len(leaves)} leaves x 2 pods)")
+        if launchesn[name] != 0:
+            raise AssertionError(f"the uncompressed round launched {name}")
+    rel = max(float((a.float() - b.float()).abs().max()
+                    / (b.float().abs().max() + 1e-9))
+              for a, b in zip(tree_leaves(p8), tree_leaves(pn)))
+    moved = any(bool((a != b).any()) for a, b in zip(tree_leaves(p8), leaves))
+    finite = all(bool(torch.isfinite(l).all()) for l in tree_leaves(p8))
+    del p8, pn
+    tn.params = None
+    recs = {"int8": rec8, "none": recn}
+    for tag, rec in recs.items():
+        if not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"{tag} round: non-finite metrics {rec}")
+    if not (finite and moved):
+        raise AssertionError("the int8 round left non-finite or unchanged "
+                             "params")
+    if not rel < 0.05:
+        raise AssertionError(f"int8 vs none params: relative {rel:.3e} "
+                             ">= 0.05")
+    warm8, warm_s, _, _ = driven(t8)
+    t8.params = p0
+    split = fused_split(lambda: timed_round(t8, p0, batch))
+    row = {
+        "arch": LM_ARCH, "params": sum(l.numel() for l in leaves),
+        "leaves": len(leaves), "dtype": cfg.dtype, "pods": 2,
+        "microbatches_per_pod": 2, "seqs_per_pod": 4, "seq_len": FUSED_SEQ,
+        "init_s": init_s, "int8_cold_s": cold_s, "int8_warm_s": warm_s,
+        "none_s": none_s, "peak_mem_gb_int8": peak8 / 1e9,
+        "peak_mem_gb_none": peakn / 1e9,
+        "int8": rec8, "none": recn, "int8_warm": warm8,
+        "int8_vs_none_rel": rel, "launches_int8": launches8,
+        "launches_none": launchesn}
+    log("fused_round " + json.dumps(row))
+    log("fused_round_device " + json.dumps(split))
+    del p0, leaves
+    t8.params = t8.server_state = None
+    torch.cuda.empty_cache()
+    return row, split
+
+
+def pod_steps(trainer, batch):
+    """Per element, the largest quantization step of its block over the
+    pods' deltas of the round about to run: ``s / n_pods × server_lr``."""
+    n_pods, agg = trainer.mesh.shape["pod"], trainer.agg
+    steps = None
+    for i in range(n_pods):
+        b = {k: torch.as_tensor(v[i * len(v) // n_pods:
+                                  (i + 1) * len(v) // n_pods],
+                                device=trainer.device)
+             for k, v in batch.items()}
+        d, _, _ = accumulate_updates(trainer.model, trainer.params, b, agg)
+        per = []
+        for leaf in tree_leaves(d):
+            _, safe, last = compression._quantize_blocks_last_axis(leaf, 256)
+            st = safe.repeat_interleave(min(256, last), dim=-1)[..., :last]
+            per.append(st.reshape(leaf.shape) / n_pods * agg.server_lr)
+        steps = per if steps is None else [torch.maximum(a, c)
+                                           for a, c in zip(steps, per)]
+    return steps
+
+
+def int8_limit(got, want, steps):
+    """The two-part limit of an int8 round: (a) at most 0.1 % of
+    elements differ by more than 1e-5; (b) none by more than one
+    quantization step of its block (plus the 1e-5 of part a).  -> (share
+    over 1e-5, largest difference in steps, whether both hold)."""
+    d = torch.cat([(g.cpu().double() - w.cpu().double()).abs().reshape(-1)
+                   for g, w in zip(got, want)])
+    st = torch.cat([s.cpu().double().reshape(-1) for s in steps])
+    share = float((d > 1e-5).double().mean())
+    worst = float(((d - 1e-5) / st).max())
+    return share, worst, share <= 1e-3 and worst <= 1.0
+
+
+@contextlib.contextmanager
+def pod_counted_twice():
+    """A planted fault for the round check: the second pod's delta is
+    counted twice in the cross-pod sum."""
+    orig = compression.fake_quantize_tree
+    calls = [0]
+
+    def faulted(delta):
+        calls[0] += 1
+        leaves, treedef = tree_flatten(orig(delta))
+        k = 2 if calls[0] == 2 else 1
+        return tree_unflatten(treedef, [k * t for t in leaves])
+
+    compression.fake_quantize_tree = faulted
+    try:
+        yield
+    finally:
+        compression.fake_quantize_tree = orig
+    if calls[0] < 2:
+        raise AssertionError("the planted fault never fired")
+
+
+def phase_round_parity():
+    """Reduced llama3.2-3b in fp32: one hierarchical int8 round on the
+    card (the kernels) against the same round on the CPU (the plain
+    versions), from the same params; and on the card with one pod's
+    delta counted twice, which must land above the limit."""
+    cfg = ARCHS[LM_ARCH].reduced(dtype="float32")
+    cpu, batch = round_setup(cfg, 64, "cpu")
+    cpu.init(seed=0)
+    p_cpu = cpu.params
+    steps = pod_steps(cpu, batch)
+    card, _ = round_setup(cfg, 64, "cuda")
+    p_card = tree_map(lambda t: t.to("cuda"), p_cpu)
+    n0 = QUANTIZE.launches
+    card_rec = timed_round(card, p_card, batch)[0]
+    if QUANTIZE.launches == n0:
+        raise AssertionError("the card's round did not launch the kernel")
+    sound_params = tree_leaves(card.params)
+    with pod_counted_twice():
+        timed_round(card, p_card, batch)
+    faulted_params = tree_leaves(card.params)
+    cpu_rec = cpu.train_round(batch)
+    want = tree_leaves(cpu.params)
+    share, worst, ok = int8_limit(sound_params, want, steps)
+    f_share, f_worst, f_ok = int8_limit(faulted_params, want, steps)
+    row = {"loss_card": card_rec["loss"], "loss_cpu": cpu_rec["loss"],
+           "share_over_1e-5": share, "worst_in_steps": worst,
+           "planted_share_over_1e-5": f_share,
+           "planted_worst_in_steps": f_worst,
+           "limit": "share <= 1e-3 and worst <= 1 step"}
+    log("round_parity " + json.dumps(row))
+    if not ok:
+        raise AssertionError(f"card vs CPU int8 round outside its limit: "
+                             f"{row}")
+    if f_ok:
+        raise AssertionError(f"a pod counted twice stayed inside the "
+                             f"limit: {row}")
+    if not abs(card_rec["loss"] - cpu_rec["loss"]) < 1e-5:
+        raise AssertionError(f"card vs CPU loss: {row}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -728,8 +1107,9 @@ def main() -> int:
 
     # phase 2: build (one nvcc per source, all at once) + copy bandwidth
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda lib: lib.build(), (fed.LIB, FA_LIB)))
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda lib: lib.build(),
+                             (fed.LIB, FA_LIB, Q_LIB)))
     log(f"build: {', '.join(str(l.relative_to(ROOT)) for l in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
     copy_bps = copy_bandwidth()
@@ -750,6 +1130,11 @@ def main() -> int:
     phase_flash()
     serve_row, flash_launches, flash_main = phase_serve(copy_bps)
     phase_lm_checks()
+
+    # phases 10-12: the quantize kernels, the fused round, its parity
+    _, quant_rows = phase_quant()
+    fused_row, fused_dev = phase_fused_round()
+    phase_round_parity()
 
     # phase 9: summary at the main paths' shapes (f32 wire; the lazy
     # round's largest burst for fedavg_accumulate_k): the phase-3 rows
@@ -778,9 +1163,20 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": FLASH.replaces, "launches": flash_launches,
+        "launches_fused_round": fused_row["launches_int8"][FLASH.name],
         **{k: flash_main[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "dtype")}})
+    for kern in Q_KERNELS:
+        r = quant_rows[kern.name]
+        out.append({
+            "name": kern.name, "route": "cuda",
+            "source": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
+            "replaces": kern.replaces,
+            "launches": fused_row["launches_int8"][kern.name],
+            **{k: r[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape", "rows")}})
     log("summary " + json.dumps({
         "rounds": len(rounds),
         "client_train_s": sum(r["trace_client_train_s"] for r in rounds),
@@ -790,7 +1186,10 @@ def main() -> int:
         "wall_s": sum(r["wall_s"] for r in rounds),
         "serve_prefill_ms": serve_row["prefill_ms"],
         "serve_decode_p50_ms": serve_row["decode_p50_ms"],
-        "flash_ms_est": flash_launches * flash_main["ms"]}))
+        "flash_ms_est": flash_launches * flash_main["ms"],
+        "fused_round_warm_s": fused_row["int8_warm_s"],
+        "fused_round_quant_ms": fused_dev["quantize_ms"]
+        + fused_dev["dequantize_ms"]}))
     log(json.dumps({"kernels": out}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ words.
 """
 from __future__ import annotations
 
-from typing import Any, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -95,12 +95,25 @@ def params_to_jax(tree: Any) -> Any:
         lambda t, conv: tensor_to_numpy(leaf_to_jax(t.detach(), conv)), tree)
 
 
+def tree_from_jax(tree: Any, device: Any = None) -> Any:
+    """A tree of numpy (or JAX) arrays -> the same tree of tensors on
+    ``device`` (None: the card), every leaf in its layout and dtype: a
+    fused round's server state (``{"step", moments...}``) and the like."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a).to(dev), tree)
+
+
 def lm_params_from_jax(tree: Any, device: Any = None) -> Any:
     """An LM tree ``{"embed", "segments": [stacked dicts], "final_norm",
     "lm_head"?}`` of numpy arrays -> the same tree of tensors on
     ``device`` (None: the card), every leaf in its layout and dtype."""
-    dev = resolve_device(device)
-    return tree_map(lambda a: tensor_from_numpy(a).to(dev), tree)
+    return tree_from_jax(tree, device)
+
+
+def metrics_from_jax(metrics: Any) -> Dict[str, float]:
+    """A JAX fused round's metrics (numpy or JAX scalars) -> floats, as
+    ``FusedFLTrainer.train_round`` records the port's."""
+    return {k: float(np.asarray(v)) for k, v in metrics.items()}
 
 
 def lm_params_to_jax(tree: Any) -> Any:

@@ -1,0 +1,198 @@
+"""The fused FL round, the JAX package's ``fl/round.py`` (train steps).
+
+One fused round:
+
+  1. cohort updates — each microbatch of client data gives one model
+     update u_i = ∇loss (``torch.autograd.grad``).
+  2. timing — "eager": u_i folded into a running fp32 accumulator, in
+     place, the moment it exists (O(1) update memory); "lazy": all u_i
+     stacked, reduced once with the weights (O(n) queue memory).
+  3. hierarchy — "hierarchical": one delta per pod crosses the top
+     aggregator hop, int8 on the wire when ``compress="int8"``; "flat":
+     one mean over the whole batch (the no-hierarchy baseline).
+  4. the server optimizer applies the aggregated delta.
+
+On one card the pod axis runs pod after pod, as the JAX package's
+``hier_step_legacy`` does: contiguous batch slices, each pod's delta
+passed through ``fake_quantize_tree`` (the quantize and dequantize
+kernels) when compressing, and folded into a running fp32 sum in the
+order ``sum(xs[1:], xs[0])``, so only one pod's delta is alive beside
+the sum.  For two pods this is also the bits of the JAX package's ring
+exchange (``pod_mean_compressed``): a sum of two terms commutes.
+
+Sidecar metrics (loss, update norm, aggregate weight, updates folded)
+are computed in the step.  The serving and dry-run builders of the JAX
+module are not part of the port's training path.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.fl import compression
+from repro_torch.fl.server import apply_server_opt
+from repro_torch.launch.mesh import dp_axes as mesh_dp_axes
+from repro_torch.launch.mesh import pod_axis as mesh_pod_axis
+from repro_torch.models import build_model
+from repro_torch.models.transformer import ModelOptions
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+
+@dataclass(frozen=True)
+class AggregationConfig:
+    """LIFL aggregation knobs (the paper's C1/C9 + beyond-paper compress)."""
+
+    hierarchy: str = "hierarchical"  # 'hierarchical' | 'flat'
+    timing: str = "eager"            # 'eager' | 'lazy'
+    compress: str = "none"           # 'none' | 'int8'
+    num_microbatches: int = 4        # model updates arriving per pod per round
+    server_opt: str = "fedavg"
+    server_lr: float = 1.0
+    acc_dtype: str = "float32"       # eager-accumulator dtype
+
+
+# ---------------------------------------------------------------------------
+# microbatch update accumulation (eager vs lazy)
+# ---------------------------------------------------------------------------
+
+
+def _split_micro(batch: Dict[str, torch.Tensor],
+                 n: int) -> Dict[str, torch.Tensor]:
+    def f(x):
+        b = x.shape[0]
+        assert b % n == 0, (f"global batch {b} not divisible by {n} "
+                            "microbatches")
+        return x.reshape(n, b // n, *x.shape[1:])
+
+    return {k: f(v) for k, v in batch.items()}
+
+
+def _cohort_update(model, params, mb):
+    """One arriving model update: (grads in the params' leaf order and
+    dtypes, weight, loss)."""
+    leaves, treedef = tree_flatten(params)
+    with torch.enable_grad():
+        live = [l.detach().requires_grad_() for l in leaves]
+        loss, _ = model.loss(tree_unflatten(treedef, live), mb)
+        grads = torch.autograd.grad(loss, live)
+    weight = (mb["labels"] >= 0).float().sum()
+    return list(grads), weight, loss.detach()
+
+
+def accumulate_updates(model, params, batch, agg: AggregationConfig):
+    """-> (delta = weighted-mean update (fp32 tree), total_weight, loss)."""
+    micro = _split_micro(batch, agg.num_microbatches)
+    leaves, treedef = tree_flatten(params)
+    n = agg.num_microbatches
+    mbs = [{k: v[i] for k, v in micro.items()} for i in range(n)]
+
+    if agg.timing == "eager":
+        # fold each arriving update into the accumulator in place
+        acc = [torch.zeros(l.shape, dtype=torch.float32, device=l.device)
+               for l in leaves]
+        wsum = loss_sum = torch.zeros((), device=leaves[0].device)
+        for mb in mbs:
+            g, w, loss = _cohort_update(model, params, mb)
+            for a, gg in zip(acc, g):
+                a.add_(gg.float().mul_(w))
+            del g
+            wsum, loss_sum = wsum + w, loss_sum + loss
+    else:
+        # lazy: queue every update, reduce at the aggregation goal
+        gs, ws, losses = [], [], []
+        for mb in mbs:
+            g, w, loss = _cohort_update(model, params, mb)
+            gs.append([gg.float() for gg in g])
+            ws.append(w)
+            losses.append(loss)
+        w_vec = torch.stack(ws)
+        acc = [torch.tensordot(w_vec, torch.stack(col), dims=1)
+               for col in zip(*gs)]
+        del gs
+        wsum, loss_sum = w_vec.sum(), torch.stack(losses).sum()
+
+    # in place: the accumulator becomes the delta
+    denom = torch.clamp_min(wsum, 1.0)
+    delta = [a.div_(denom) for a in acc]
+    return tree_unflatten(treedef, delta), wsum, loss_sum / n
+
+
+# ---------------------------------------------------------------------------
+# train step builders
+# ---------------------------------------------------------------------------
+
+
+def _metrics(delta, wsum, loss, n_updates):
+    """The sidecar's metrics, computed with the aggregation event."""
+    sq = sum(torch.sum(torch.square(l.float())) for l in tree_leaves(delta))
+    return {
+        "loss": loss,
+        "update_norm": torch.sqrt(sq),
+        "aggregate_weight": wsum,
+        "updates_aggregated": n_updates,
+    }
+
+
+def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
+                     opts: Optional[ModelOptions] = None):
+    """-> (train_step(params, server_state, batch) -> (params', state',
+    metrics), model).  ``mesh`` is the port's logical mesh
+    (``launch/mesh.py``)."""
+    dp = mesh_dp_axes(mesh)
+    pod = mesh_pod_axis(mesh)
+    opts = opts or ModelOptions(
+        attn_impl="chunked_sp",
+        moe_impl="ep" if cfg.moe is not None else "dense",
+        ssm_impl="sharded",
+        dp_axes=dp if (agg.hierarchy == "flat" or pod is None) else ("data",),
+        model_axis="model",
+        vocab_axis="model",
+        mesh=mesh,
+    )
+    model = build_model(cfg, opts)
+
+    def flat_step(params, server_state, batch):
+        delta, wsum, loss = accumulate_updates(model, params, batch, agg)
+        new_params, new_state = apply_server_opt(
+            agg.server_opt, params, server_state, delta, lr=agg.server_lr)
+        return new_params, new_state, _metrics(delta, wsum, loss,
+                                               agg.num_microbatches)
+
+    if pod is None or agg.hierarchy == "flat":
+        return flat_step, model
+
+    def hier_step(params, server_state, batch):
+        n_pods = mesh.shape[pod]
+        pod_sum = wsum = loss = None
+        for i in range(n_pods):
+            b_i = {k: _pod_slice(v, i, n_pods) for k, v in batch.items()}
+            d, w, l = accumulate_updates(model, params, b_i, agg)
+            if agg.compress == "int8":
+                d = compression.fake_quantize_tree(d)  # wire precision
+            if pod_sum is None:
+                pod_sum, wsum, loss = tree_leaves(d), w, l
+            else:
+                for s, x in zip(pod_sum, tree_leaves(d)):
+                    s.add_(x)
+                wsum, loss = wsum + w, loss + l
+            del d
+        _, treedef = tree_flatten(params)
+        delta = tree_unflatten(treedef, [s.div_(n_pods) for s in pod_sum])
+        new_params, new_state = apply_server_opt(
+            agg.server_opt, params, server_state, delta, lr=agg.server_lr)
+        return new_params, new_state, _metrics(
+            delta, wsum, loss / n_pods, agg.num_microbatches * n_pods)
+
+    return hier_step, model
+
+
+def _pod_slice(x: torch.Tensor, i: int, n_pods: int) -> torch.Tensor:
+    """Pod ``i``'s contiguous slice of the batch; the batch must split
+    evenly across pods."""
+    assert x.shape[0] % n_pods == 0, (
+        f"global batch {x.shape[0]} not divisible by {n_pods} pods")
+    b = x.shape[0] // n_pods
+    return x[i * b:(i + 1) * b]

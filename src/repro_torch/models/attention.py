@@ -1,13 +1,17 @@
-"""Attention: GQA with RoPE and sliding windows, two interchangeable impls.
+"""Attention: GQA with RoPE and sliding windows, three interchangeable
+impls.
 
-* ``naive``  — full (S, S) score matrix; the oracle for tests.
-* ``pallas`` — the flash-attention forward kernel
+* ``naive``   — full (S, S) score matrix; the oracle for tests.
+* ``chunked`` / ``chunked_sp`` — the flash-style custom backward of
+  ``models/flash.py`` (blockwise forward, probabilities recomputed in
+  the backward): the training path.  ``chunked_sp`` is the
+  context-parallel form, which on a model axis of size 1 is the same
+  function; a larger axis is refused (ROADMAP A.8).
+* ``pallas``  — the flash-attention forward kernel
   (``kernels/flash_attention``): the CUDA kernel on the card, its plain
   version on the CPU.  The name is the JAX package's option name.
 
-The JAX package's ``chunked`` / ``chunked_sp`` impls (the flash custom
-VJP of ``models/flash.py``) serve training and are not ported yet, nor
-is cross-attention; both are refused by name.
+Cross-attention is not ported yet and is refused by name.
 
 Decode uses a ring-buffer KV cache (slot ``pos % capacity`` is
 overwritten) and one einsum over the cache.  Unlike the JAX package,
@@ -25,6 +29,8 @@ import math
 import torch
 
 from repro_torch.configs.base import GLOBAL, ArchConfig
+from repro_torch.models.flash import (flash_self_attention,
+                                      flash_self_attention_sp)
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm_headwise
 
 _NEG_INF = -1e30
@@ -101,7 +107,7 @@ def _attend_naive(q, k, v, qpos, kpos, window, causal, scale):
 
 
 # ---------------------------------------------------------------------------
-# public: prefill attention
+# public: training / prefill attention
 # ---------------------------------------------------------------------------
 
 
@@ -115,23 +121,28 @@ def attention(
     causal: bool = True,
     memory=None,
     impl: str = "chunked",
+    block_kv: int = 512,
+    model_axis: str = "model",
+    mesh=None,
 ) -> torch.Tensor:
     """Self-attention of the block; ``memory`` (cross-attention) is
     refused."""
     if memory is not None:
         _refuse_cross()
-    if impl in ("chunked", "chunked_sp"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r}: the flash custom-VJP attention of "
-            "models/flash.py is not ported yet (ROADMAP A.6); use "
-            "'pallas' (the CUDA kernel) or 'naive'")
-    if impl not in ("naive", "pallas"):
+    if impl not in ("naive", "chunked", "chunked_sp", "pallas"):
         raise ValueError(f"unknown attention impl {impl!r}")
     q, k, v = _project_qkv(cfg, params, x, x, positions, positions, rope=True)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if impl == "naive":
         out = _attend_naive(q, k, v, positions, positions, window, causal,
                             scale)
+    elif impl == "chunked":
+        out = flash_self_attention(q, k, v, window, causal, scale,
+                                   min(block_kv, k.shape[1]))
+    elif impl == "chunked_sp":
+        out = flash_self_attention_sp(q, k, v, window, causal, scale,
+                                      min(block_kv, k.shape[1]),
+                                      model_axis=model_axis, mesh=mesh)
     else:
         from repro_torch.kernels.flash_attention import ops as fa_ops
 

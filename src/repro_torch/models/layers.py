@@ -108,3 +108,48 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+def unembed(table_or_head: torch.Tensor, x: torch.Tensor,
+            tied: bool) -> torch.Tensor:
+    """Project hidden states to vocab logits (fp32)."""
+    w = table_or_head.float()
+    xf = x.float()
+    return xf @ w.t() if tied else xf @ w
+
+
+# ---------------------------------------------------------------------------
+# Chunked (sequence-blocked) cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def _chunk_loss(unembed_w, h_c, y_c, tied: bool):
+    logits = unembed(unembed_w, h_c, tied)              # (B, c, V) fp32
+    logz = torch.logsumexp(logits, dim=-1)
+    tok = logits.gather(-1, y_c.clamp_min(0).long()[..., None])[..., 0]
+    valid = (y_c >= 0).float()
+    return ((logz - tok) * valid).sum(), valid.sum()
+
+
+def chunked_lm_loss(hidden: torch.Tensor, unembed_w: torch.Tensor,
+                    labels: torch.Tensor, tied: bool,
+                    chunk: int = 256) -> torch.Tensor:
+    """Cross-entropy without materialising the full (B, S, V) logits:
+    a loop over sequence chunks, each under ``torch.utils.checkpoint``
+    (the JAX package's ``jax.checkpoint``), so the backward keeps one
+    chunk's logits at a time.  Labels of -1 are ignored."""
+    from torch.utils.checkpoint import checkpoint
+
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)]
+    if S > n * chunk:
+        bounds.append((n * chunk, S))
+    for lo, hi in bounds:
+        l, c = checkpoint(_chunk_loss, unembed_w, hidden[:, lo:hi],
+                          labels[:, lo:hi], tied, use_reentrant=False)
+        total, count = total + l, count + c
+    return total / torch.clamp_min(count, 1.0)

@@ -1,22 +1,24 @@
-"""Model facade: the JAX package's ``LM`` interface for serving.
+"""Model facade: the JAX package's ``LM`` interface for training and
+serving.
 
-``LM`` exposes what the serving path needs:
+``LM`` exposes what the fused round and the serving path need:
 
   init(seed, device=None) -> params                 (on the card by default)
+  loss(params, batch) -> (scalar, {"ce", "moe_aux"})
   prefill(params, batch) -> (last-token logits, caches)
   init_decode(batch, capacity, device=None) -> caches
   decode_step(params, tokens, caches, pos) -> (logits, caches)
 
-Batches are dicts: prefill ``{"tokens": (B,S) int}``; decode takes
-tokens (B,1), the caches and the absolute position ``pos``.  Caches are
-written in place by ``decode_step`` (see ``models/attention.py``).
-``loss`` (training) and the encoder / modality-frontend configs are not
-ported yet and are refused by name.
+Batches are dicts: train ``{"tokens", "labels"}`` (B,S) int (label -1
+is ignored), prefill ``{"tokens": (B,S) int}``; decode takes tokens
+(B,1), the caches and the absolute position ``pos``.  Caches are written
+in place by ``decode_step`` (see ``models/attention.py``).  The encoder
+/ modality-frontend configs are not ported yet and are refused by name.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -25,9 +27,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (dense_init, init_embedding,
                                        init_rmsnorm, rmsnorm)
-from repro_torch.models.sharded_vocab import (decode_logits, embed_lookup,
+from repro_torch.models.sharded_vocab import (chunked_lm_loss_sharded,
+                                              decode_logits, embed_lookup,
                                               padded_vocab)
 from repro_torch.models.transformer import ModelOptions
+
+MOE_AUX_WEIGHT = 0.01
 
 
 class LM:
@@ -67,7 +72,7 @@ class LM:
     def _embed(self, params, tokens) -> torch.Tensor:
         table = params["embed"]
         tokens = torch.as_tensor(tokens, device=table.device)
-        x = embed_lookup(table, tokens, self.opts.vocab_axis)
+        x = embed_lookup(table, tokens, self.opts.vocab_axis, self.opts.mesh)
         # the JAX package multiplies by a weakly typed scalar, which takes
         # the table's dtype before the product
         mult = torch.full((), math.sqrt(self.cfg.d_model), dtype=x.dtype,
@@ -85,9 +90,21 @@ class LM:
         return x, aux, caches
 
     # ------------------------------------------------------------------
-    def loss(self, params, batch):
-        raise NotImplementedError("LM training (loss and its backward) is "
-                                  "not ported yet (ROADMAP A.6, A.7)")
+    def loss(self, params, batch) -> Tuple[torch.Tensor,
+                                           Dict[str, torch.Tensor]]:
+        if batch.get("frontend") is not None:
+            raise NotImplementedError("frontend embeddings are not ported "
+                                      "yet (ROADMAP A.6)")
+        hidden, aux, _ = self._forward(params, batch["tokens"])
+        w, tied = self._unembed_w(params)
+        labels = torch.as_tensor(batch["labels"], device=hidden.device)
+        ce = chunked_lm_loss_sharded(
+            hidden, w, labels, vocab=self.cfg.vocab_size, tied=tied,
+            model_axis=self.opts.vocab_axis, chunk=self.opts.loss_chunk,
+            mesh=self.opts.mesh)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+        total = ce + MOE_AUX_WEIGHT * aux
+        return total, {"ce": ce, "moe_aux": aux}
 
     # ------------------------------------------------------------------
     def prefill(self, params, batch):
@@ -100,7 +117,7 @@ class LM:
         w, tied = self._unembed_w(params)
         logits = decode_logits(
             hidden[:, -1:], w, vocab=self.cfg.vocab_size, tied=tied,
-            model_axis=self.opts.vocab_axis,
+            model_axis=self.opts.vocab_axis, mesh=self.opts.mesh,
         )
         return logits, caches
 
@@ -120,7 +137,7 @@ class LM:
         w, tied = self._unembed_w(params)
         logits = decode_logits(
             x, w, vocab=self.cfg.vocab_size, tied=tied,
-            model_axis=self.opts.vocab_axis,
+            model_axis=self.opts.vocab_axis, mesh=self.opts.mesh,
         )
         return logits, new_caches
 

@@ -5,8 +5,13 @@ without MoE or cross-attention.  Layers are grouped into *segments*:
 maximal runs of layers with one static :class:`LayerSpec`.  A segment's
 params keep the JAX layout — each leaf stacked on a leading layer axis,
 as ``jax.vmap`` builds it — and the JAX package's ``lax.scan`` over that
-axis is a Python loop here.  SSM, MLA, MoE and hybrid blocks, and
-``remat``, are refused by name.
+axis is a Python loop here, over one ``torch.unbind`` of each stacked
+leaf per segment (its backward stacks the layers' gradients once; taking
+``a[i]`` per layer would allocate a zero tensor the size of the whole
+stack in every layer's backward).  ``remat=True`` runs each layer under
+``torch.utils.checkpoint``, as the JAX package wraps the scan body in
+``jax.checkpoint``.  SSM, MLA, MoE and hybrid blocks are refused by
+name.
 
 Param tree:
   {"embed": (V,D), "segments": [stacked dict], "final_norm": {...},
@@ -22,7 +27,7 @@ import torch
 from repro_torch.configs.base import GLOBAL, ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import ffn, init_ffn, init_rmsnorm, rmsnorm
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 class LayerSpec(NamedTuple):
@@ -36,8 +41,10 @@ class LayerSpec(NamedTuple):
 @dataclass(frozen=True)
 class ModelOptions:
     """Execution options — orthogonal to the architecture config.  The
-    JAX package's fields and defaults; the port runs ``attn_impl``
-    'naive' and 'pallas' and needs ``remat=False``."""
+    JAX package's fields and defaults.  ``mesh`` is the port's logical
+    mesh (``launch/mesh.py``): a named axis (``vocab_axis``, the model
+    axis of ``chunked_sp``) is resolved on it and runs unsharded at
+    size 1."""
 
     attn_impl: str = "chunked"          # naive | chunked | pallas
     moe_impl: str = "dense"             # dense | ep
@@ -108,6 +115,14 @@ def _layer(tree: Any, i: int) -> Any:
     return tree_map(lambda a: a[i], tree)
 
 
+def _layers(tree: Any) -> List[Any]:
+    """A stacked tree -> one tree per layer, by one ``unbind`` a leaf."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(treedef, list(layer))
+            for layer in zip(*per_leaf)]
+
+
 # ---------------------------------------------------------------------------
 # Block init
 # ---------------------------------------------------------------------------
@@ -148,7 +163,8 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(cfg, params["attn"], h, positions,
                                window=spec.window, causal=spec.causal,
-                               impl=opts.attn_impl)
+                               impl=opts.attn_impl, block_kv=opts.block_kv,
+                               model_axis=opts.model_axis, mesh=opts.mesh)
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     x = x + ffn(params["ffn"], h2)
     cache_out = None
@@ -213,16 +229,22 @@ def apply_stack(cfg: ArchConfig, seg_params: List[Any],
                 specs: List[LayerSpec], opts: ModelOptions, x: torch.Tensor,
                 positions: torch.Tensor, collect_cache: bool = False):
     """-> (x, aux (0: no MoE), caches_per_segment | None)."""
-    if opts.remat:
-        raise NotImplementedError(
-            "remat=True: rematerialisation serves a backward pass, and LM "
-            "training is not ported yet (ROADMAP A.6); pass remat=False")
+    from torch.utils.checkpoint import checkpoint
+
     caches = [] if collect_cache else None
     for sp, (count, spec) in zip(seg_params, segment_specs(specs)):
+
+        def body(layer_params, xx, spec=spec):
+            return _apply_block(cfg, spec, opts, layer_params, xx, positions,
+                                collect_cache)
+
         seg_cache = []
-        for i in range(count):
-            x, cache = _apply_block(cfg, spec, opts, _layer(sp, i), x,
-                                    positions, collect_cache)
+        for layer_params in _layers(sp):
+            if opts.remat:
+                x, cache = checkpoint(body, layer_params, x,
+                                      use_reentrant=False)
+            else:
+                x, cache = body(layer_params, x)
             seg_cache.append(cache)
         if collect_cache:
             caches.append(_stack(seg_cache))

@@ -7,12 +7,12 @@ aggregation), failure handling via over-provisioning + aggregation
 goal.  The round itself is driven by
 :class:`repro_torch.runtime.driver.RoundDriver`.
 
-The port of the JAX package's ``runtime/trainer.py`` (its
-``FusedFLTrainer`` is not ported yet: ROADMAP A.7).  Parameters are a
+The port of the JAX package's ``runtime/trainer.py``.  Parameters are a
 tree of tensors on the trainer's device, conv kernels OIHW; client
 deltas leave the device as one fp32 numpy vector in the JAX package's
 leaf order and layout, so the object store, the fold and the wire are
-the JAX package's.
+the JAX package's.  ``FusedFLTrainer`` runs the fused round of
+``fl/round.py`` (large models, one step per round) on one device.
 """
 from __future__ import annotations
 
@@ -40,7 +40,9 @@ from repro_torch.core import (
     Selector,
 )
 from repro_torch.core.engine import EngineConfig
+from repro_torch.core.reuse import ExecutableCache
 from repro_torch.device import resolve_device
+from repro_torch.fl.round import AggregationConfig, build_train_step
 from repro_torch.fl.server import apply_server_opt, init_server_state
 from repro_torch.optim import sgd_apply
 from repro_torch.obs.trace import RoundTrace, write_trace
@@ -548,4 +550,52 @@ class _TrainerRound:
         }
         tr.log.append(rec)
         self.record = rec
+        return rec
+
+
+# ===========================================================================
+# fused engine (large models, one step per round)
+# ===========================================================================
+
+
+class FusedFLTrainer:
+    """The JAX package's ``FusedFLTrainer`` on one device.  The step runs
+    eagerly (the JAX package jits it); ``ExecutableCache`` holds it under
+    the same signature."""
+
+    def __init__(self, cfg, mesh, agg: AggregationConfig, *, opts=None,
+                 device: Any = None, checkpoint_dir: Optional[str] = None):
+        if checkpoint_dir is not None:
+            raise NotImplementedError("checkpoint_dir=: checkpoints are not "
+                                      "ported yet (ROADMAP A.8)")
+        self.cfg = cfg
+        self.mesh = mesh
+        self.agg = agg
+        self.device = resolve_device(device)
+        step, model = build_train_step(cfg, mesh, agg, opts=opts)
+        self.model = model
+        self._cache = ExecutableCache(lambda **sig: step)
+        self.step_fn = self._cache.get(batch=agg.num_microbatches,
+                                       opt=agg.server_opt)
+        self.params = None
+        self.server_state = None
+        self.round_id = 0
+        self.history: List[Dict[str, float]] = []
+
+    def init(self, seed: int = 0) -> None:
+        """Random params from ``seed``, drawn on the trainer's device."""
+        self.params = self.model.init(seed, device=self.device)
+        self.server_state = init_server_state(self.agg.server_opt,
+                                              self.params)
+
+    def train_round(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
+        assert self.params is not None, "call init() first"
+        tb = {k: torch.as_tensor(np.asarray(v), device=self.device)
+              for k, v in batch.items()}
+        self.params, self.server_state, metrics = self.step_fn(
+            self.params, self.server_state, tb)
+        self.round_id += 1
+        rec = {k: float(v) for k, v in metrics.items()}
+        rec["round"] = self.round_id
+        self.history.append(rec)
         return rec

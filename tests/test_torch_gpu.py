@@ -1,13 +1,14 @@
-"""The CUDA kernels (fedavg, flash attention) against their plain
-PyTorch versions, on the card.  Marked ``gpu``: they skip on a host without a CUDA device or
-``nvcc``.  Run them on the card with
+"""The CUDA kernels (fedavg, flash attention, int8 quantize and
+dequantize) against their plain PyTorch versions, and the fused int8
+round against the CPU, on the card.  Marked ``gpu``: they skip on a host
+without a CUDA device or ``nvcc``.  Run them on the card with
 
-    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 This file imports no JAX, so it runs where JAX is not installed.
 Tolerances are the JAX package's kernel tests': 1e-6 for one fold,
 1e-5 for the K-way burst and the reduce; rtol = atol = 2e-6 (fp32) and
-2e-2 (bf16) for flash attention.
+2e-2 (bf16) for flash attention; the quantize kernels bit-equal.
 """
 import pytest
 import torch
@@ -19,6 +20,12 @@ from repro_torch.kernels.build import nvcc
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import FLASH
 from repro_torch.kernels.flash_attention.flash_attention import LIB as FA_LIB
+from repro_torch.kernels.quantize import ops as qops
+from repro_torch.kernels.quantize.quantize import (KERNELS as Q_KERNELS,
+                                                   LIB as Q_LIB,
+                                                   dequantize_cuda,
+                                                   quantize_cuda)
+from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_ref
 
 WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
         "float16": torch.float16}
@@ -34,6 +41,7 @@ def card():
         pytest.skip(str(e).splitlines()[0])
     cuda_fed.build()               # a failed compile fails the test
     FA_LIB.build()
+    Q_LIB.build()
     return torch.device("cuda")
 
 
@@ -125,3 +133,122 @@ def test_lm_prefill_on_the_card_matches_the_cpu(card):
     assert FLASH.launches == before + 2        # one per layer
     want, _ = model.prefill(params, {"tokens": toks})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _equal_bits(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.dtype.is_floating_point:
+        a, b = a.contiguous().view(torch.int16 if a.element_size() == 2
+                                   else torch.int32), \
+            b.contiguous().view(torch.int16 if b.element_size() == 2
+                                else torch.int32)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["256", "773", "100", "70000", "zeros",
+                                  "bf16", "b64", "b200"])
+def test_quantize_kernels_match_plain_versions_bit_for_bit(card, case):
+    g = torch.Generator(device=card).manual_seed(1)
+    n, block, dtype = {"256": (256, 256, "float32"),
+                       "773": (773, 256, "float32"),
+                       "100": (100, 256, "float32"),
+                       "70000": (70000, 256, "float32"),
+                       "zeros": (512, 256, "float32"),
+                       "bf16": (773, 256, "bfloat16"),
+                       "b64": (64 * 37 + 9, 64, "float32"),
+                       "b200": (200 * 11, 200, "float32")}[case]
+    x = torch.randn(n, generator=g, device=card) * 3
+    if case == "zeros":
+        x.zero_()
+    x = x.to(WIRE[dtype])
+    before = [k.launches for k in Q_KERNELS]
+    q, s = qops.quantize(x, block=block)
+    qr, sr = qops.quantize(x, block=block, impl="torch")
+    _equal_bits(q, qr)
+    _equal_bits(s, sr)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        back = qops.dequantize(q, s, n, out_dtype=out_dtype)
+        _equal_bits(back, qops.dequantize(q, s, n, out_dtype=out_dtype,
+                                          impl="torch"))
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(Q_KERNELS, before)] == [1, 2]
+    # error bound: |x - deq| <= scale/2 per block
+    err = (qops.dequantize(q, s, n) - x.float()).abs()
+    assert bool((err <= s.repeat_interleave(block)[:n] / 2 + 1e-7).all())
+
+
+@pytest.mark.gpu
+def test_quantize_wrappers_refuse_what_the_kernels_do_not_take(card):
+    with pytest.raises(ValueError, match="1 to 256"):
+        quantize_cuda(torch.zeros(2, 300, device=card))
+    with pytest.raises(TypeError):
+        quantize_cuda(torch.zeros(2, 8, device=card,
+                                         dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_cuda(torch.zeros(8, 4, device=card).t())
+    with pytest.raises(ValueError, match="scales"):
+        dequantize_cuda(torch.zeros(2, 8, device=card,
+                                           dtype=torch.int8),
+                               torch.ones(3, device=card))
+
+
+@pytest.mark.gpu
+def test_fused_int8_round_on_the_card_matches_the_cpu(card):
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.loader import CohortTokenLoader
+    from repro_torch.fl.round import AggregationConfig
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime import FusedFLTrainer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["llama3.2-3b"].reduced(dtype="float32")
+    mesh = make_debug_mesh((2, 1, 1), ("pod", "data", "model"))
+    agg = AggregationConfig(compress="int8", num_microbatches=2)
+    batch = CohortTokenLoader(cfg.vocab_size, 32, 4).round_batch(8, 0)
+    cpu = FusedFLTrainer(cfg, mesh, agg, device="cpu")
+    cpu.init(0)
+    on_card = FusedFLTrainer(cfg, mesh, agg)
+    on_card.params = tree_map(lambda t: t.to(card), cpu.params)
+    on_card.server_state = tree_map(lambda t: t.to(card), cpu.server_state)
+    before = [k.launches for k in Q_KERNELS]
+    got = on_card.train_round(batch)
+    torch.cuda.synchronize()
+    n_leaves = len(tree_leaves(cpu.params))
+    assert [k.launches - b for k, b in zip(Q_KERNELS, before)] == \
+        [2 * n_leaves, 2 * n_leaves]
+    steps = _pod_steps(cpu, batch)
+    want = cpu.train_round(batch)
+    assert abs(got["loss"] - want["loss"]) < 1e-5
+    # the two-part limit: at most 0.1 % of elements over 1e-5, none over
+    # one quantization step of its block (s / n_pods x server_lr)
+    diffs = [(a.cpu() - b).abs() for a, b in
+             zip(tree_leaves(on_card.params), tree_leaves(cpu.params))]
+    over = sum(int((d > 1e-5).sum()) for d in diffs)
+    assert over <= 1e-3 * sum(d.numel() for d in diffs)
+    assert all(bool((d <= st + 1e-5).all()) for d, st in zip(diffs, steps))
+
+
+def _pod_steps(trainer, batch):
+    """Per element, the largest quantization step of its block over the
+    pods' deltas of the round about to run (on the CPU trainer)."""
+    from repro_torch.fl import compression
+    from repro_torch.fl.round import accumulate_updates
+    from repro_torch.tree import tree_leaves
+
+    n_pods, agg = trainer.mesh.shape["pod"], trainer.agg
+    steps = None
+    for i in range(n_pods):
+        b = {k: torch.from_numpy(v[i * len(v) // n_pods:
+                                   (i + 1) * len(v) // n_pods])
+             for k, v in batch.items()}
+        d, _, _ = accumulate_updates(trainer.model, trainer.params, b, agg)
+        per = []
+        for leaf in tree_leaves(d):
+            _, safe, last = compression._quantize_blocks_last_axis(leaf, 256)
+            st = safe.repeat_interleave(min(256, last), dim=-1)[..., :last]
+            per.append(st.reshape(leaf.shape) / n_pods * agg.server_lr)
+        steps = per if steps is None else [torch.maximum(a, c)
+                                           for a, c in zip(steps, per)]
+    return steps

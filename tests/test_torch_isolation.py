@@ -109,13 +109,19 @@ def test_session_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("entry", ["init", "params_from_jax", "lm_init",
-                                   "lm_init_decode", "lm_params_from_jax"])
+                                   "lm_init_decode", "lm_params_from_jax",
+                                   "fused_trainer", "lm_init_train",
+                                   "tree_from_jax"])
 def test_params_default_to_the_card(entry):
     from repro_torch.configs import ARCHS
     from repro_torch.configs.resnet import RESNET18
-    from repro_torch.convert import lm_params_from_jax, params_from_jax
+    from repro_torch.convert import (lm_params_from_jax, params_from_jax,
+                                     tree_from_jax)
+    from repro_torch.fl.round import AggregationConfig
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import ModelOptions, build_model
     from repro_torch.models.resnet import build_resnet
+    from repro_torch.runtime import FusedFLTrainer
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -127,7 +133,15 @@ def test_params_default_to_the_card(entry):
             "lm_init": lambda: lm.init(0),
             "lm_init_decode": lambda: lm.init_decode(1, 8),
             "lm_params_from_jax":
-                lambda: lm_params_from_jax({"embed": np.ones((4, 2))})}
+                lambda: lm_params_from_jax({"embed": np.ones((4, 2))}),
+            "fused_trainer": lambda: FusedFLTrainer(
+                ARCHS["llama3.2-3b"].reduced(),
+                make_debug_mesh((2, 1, 1), ("pod", "data", "model")),
+                AggregationConfig(compress="int8")),
+            "lm_init_train": lambda: build_model(
+                ARCHS["llama3.2-3b"].reduced(),
+                ModelOptions(attn_impl="chunked", remat=True)).init(0),
+            "tree_from_jax": lambda: tree_from_jax({"step": np.int32(0)})}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make[entry]()
 
@@ -156,3 +170,27 @@ def test_serve_and_shmproc_runtime_are_refused():
         assert s.metrics()["rounds"] == []
     with pytest.raises(NotImplementedError, match="A.4"):
         ShmProcRuntime()
+
+
+@pytest.mark.parametrize("op", ["quantize", "dequantize", "fedavg",
+                                "flash"])
+def test_kernel_ops_launch_or_raise_on_the_card_path(op):
+    """``impl="cuda"`` is the card's path: given a CPU tensor it raises,
+    and never runs the plain version."""
+    from repro_torch.kernels.fedavg import ops as fed_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.quantize import ops as q_ops
+
+    x = torch.zeros(256)
+    call = {
+        "quantize": lambda: q_ops.quantize(x, impl="cuda"),
+        "dequantize": lambda: q_ops.dequantize(
+            torch.zeros(1, 256, dtype=torch.int8), torch.ones(1), 256,
+            impl="cuda"),
+        "fedavg": lambda: fed_ops.eager_accumulate(x, x, 1.0, impl="cuda"),
+        "flash": lambda: fa_ops.flash_attention(
+            torch.zeros(1, 4, 1, 1, 8), torch.zeros(1, 4, 1, 8),
+            torch.zeros(1, 4, 1, 8), impl="cuda"),
+    }
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call[op]()

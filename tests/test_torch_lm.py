@@ -228,9 +228,9 @@ def test_unported_archs_are_refused(arch):
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"attn_impl": "chunked"}, "A.6"),
-    ({"attn_impl": "chunked_sp"}, "A.6"),
-    ({"remat": True}, "A.6"),
+    ({"attn_impl": "chunked_sp"}, "A.8"),
+    ({"attn_impl": "chunked", "vocab_axis": "model"}, "A.8"),
+    ({"attn_impl": "chunked_sp", "remat": True}, "A.8"),
     ({"vocab_axis": "model"}, "A.8"),
 ])
 def test_unported_options_are_refused(over, item):
@@ -247,8 +247,10 @@ def test_training_moe_and_cross_attention_are_refused():
     cfg = TORCH_ARCHS["llama3.2-3b"].reduced(dtype="float32")
     model = build_model(cfg, _opts(ModelOptions))
     params = model.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6, A.7"):
-        model.loss(params, {})
+    toks = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        model.loss(params, {"tokens": toks, "labels": toks,
+                            "frontend": torch.zeros(1, 2, 64)})
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         model.prefill(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
                                "frontend": torch.zeros(1, 2, 64)})

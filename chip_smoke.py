@@ -9,14 +9,19 @@ on any fault; it imports nothing of the JAX package.  Phases:
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; TF32 is switched off for convolutions and matmuls, and
    so is the reduced-precision reduction of bf16 matmuls.
-2. build: compiles ``csrc/fedavg.cu`` and ``csrc/flash_attention.cu``
-   with ``nvcc``, one process each, at once, into
+2. build: compiles ``csrc/fedavg.cu``, both flash sources
+   (``csrc/flash_attention_sm90.cu``, ``csrc/flash_attention.cu``) and
+   ``csrc/quantize.cu`` with ``nvcc``, one process each, at once, into
    ``build/repro_torch/`` and times it; measures the card's
    device-to-device copy bandwidth, the practical ceiling of a fold.
 3. kernels: each fedavg CUDA kernel against its plain PyTorch version
    at the ResNet-18 update size (N = 11,199,486), one JSON line per
-   case: errors, kernel / plain / library times (median of CUDA-event
-   timings) and the bound at the nominal and the measured bandwidth.
+   case: errors, kernel / plain / library times (CUDA events around a
+   run of back-to-back calls, median of the runs) and the bound at the
+   nominal and the measured bandwidth.  The eager fold must be bit-equal
+   to its plain version, also on views that start off 16 bytes
+   (``acc[1:]``, ``u[3:]``), and is timed beside its first design
+   (``previous_ms``).
 4. engine: the port's ``Aggregator`` on ``TorchEngine(cuda)`` folds six
    ResNet-18-sized updates, eager and lazy, against ``fedavg_oracle``.
 5. round: ``repro_torch.api.Session`` on full-width ResNet-18 (random
@@ -26,18 +31,24 @@ on any fault; it imports nothing of the JAX package.  Phases:
    same path at reduced width on the card and on the CPU (the kernels'
    plain versions) must give the same params within ``PARITY_ATOL``,
    and a run with one update planted twice must not.
-6. flash: the flash-attention CUDA kernel against its plain version
-   (``attention_ref``) at the serve path's shape (B = 4, S = 2000, 24
-   query heads over 8 KV heads, D = 128) in bf16 and fp32, and at the
-   four shapes of the JAX package's kernel test; one ``flash_case``
-   JSON line each, with the library call (``scaled_dot_product_attention``)
-   as the yardstick and the bound at the bf16 (or fp32) peak.
+6. flash: the flash-attention kernels against their plain version
+   (``attention_ref``): 16-bit inputs go to the wgmma kernel, fp32 to
+   the CUDA-core one, and each call must move that kernel's count.  At
+   the serve path's shape (B = 4, S = 2000, 24 query heads over 8 KV
+   heads, D = 128) in bf16, fp16 and fp32; at gemma3's (K 4, G 2, D 256,
+   window 1024) and h2o-danube-3-4b's (K 8,
+   G 4, D 120, window 4096) in bf16; and at the four shapes of the JAX
+   package's kernel test in all three.  One ``flash_case`` JSON line
+   each, with the library call (``scaled_dot_product_attention``) as the
+   yardstick, the bound at the bf16 (or fp32) peak and, for 16-bit
+   inputs, the CUDA-core kernel on the same inputs (``previous_ms``).
 7. serve: full-width llama3.2-3b (random bf16 weights from seed 0)
    through ``repro_torch.models``: prefill of 4 prompts of 2000 tokens
    with ``attn_impl="pallas"``, then 32 greedy decode steps on the ring
-   KV cache (``examples/serve_decode.py``'s loop).  The flash count is
-   zeroed just before the prefill and must read 28 (one per layer) just
-   after; the logits must be finite; q, k and v of the first and last
+   KV cache (``examples/serve_decode.py``'s loop).  The flash counts are
+   zeroed just before the prefill and must read 28 (one per layer) for
+   the wgmma kernel and 0 for the CUDA-core one just after; the logits
+   must be finite; q, k and v of the first and last
    layers are captured and the kernel is held against its plain version
    on them.  Two more prefills give the warm time; one prefill and one
    decode step under ``torch.profiler`` split the device time into the
@@ -49,13 +60,16 @@ on any fault; it imports nothing of the JAX package.  Phases:
    package's 2e-3); then the serve loop on the card (the kernel) against
    the CPU (the plain version): greedy tokens equal and logits within
    ``LM_PARITY_ATOL``, and the same loop with the KV heads rolled by one
-   before the kernel in the first layer must land above it.
+   before the kernel in the first layer must land above it.  In fp32
+   the loop runs the CUDA-core flash kernel: its counts are zeroed just
+   before the card's loop and read just after.
 9. summary, printed last: a ``{"kernels": [...]}`` line (phase 3's
    rows at the main path's shapes, the burst timed again at the lazy
-   round's K, the flash row on the serve path's captured first-layer
-   inputs, and phase 10's quantize rows at the fused round's largest
-   leaf), the device line, and the last line ``{"ok": true, "device":
-   {...}}``.
+   round's K, the wgmma flash row on the serve path's captured
+   first-layer inputs, the CUDA-core flash row at the serve shape in
+   fp32 with its launches from phase 8, and phase 10's quantize rows at
+   the fused round's largest leaf), the device line, and the last line
+   ``{"ok": true, "device": {...}}``.
 10. quant: the int8 quantize and dequantize CUDA kernels against their
    plain versions, bit for bit (q, scales, dequantized fp32 and bf16)
    and within half a scale of the input, at the JAX package's
@@ -112,7 +126,8 @@ from repro_torch.kernels.fedavg import fedavg as fed  # noqa: E402
 from repro_torch.kernels.fedavg import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    FLASH, GLOBAL, LIB as FA_LIB)
+    FLASH_SIMT, FLASH_WGMMA, GLOBAL, KERNELS as FA_KERNELS, LIBS as FA_LIBS,
+    flash_attention_fwd_cuda)
 from repro_torch.kernels.quantize import ops as q_ops  # noqa: E402
 from repro_torch.kernels.quantize import ref as q_ref  # noqa: E402
 # the package's name ``quantize`` is the op; the wrappers' module by path
@@ -137,7 +152,8 @@ PARITY_ATOL = 3e-4           # card vs CPU params, phase 5
 CLIENT_LR = 0.01             # the paper's client SGD (§6.2: lr 0.01, batch 32)
 #: flash kernel vs its plain version, rtol = atol: the JAX package's
 #: kernel test (tests/test_kernels.py:134), at every shape
-FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2,
+             torch.float16: 2e-2}
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "llama3.2-3b", 4, 2000, 32
 LM_PARITY_ATOL = 2e-3        # card vs CPU logits, phase 8
 FUSED_SEQ = 512              # tokens a sequence in the fused round, phase 11
@@ -155,8 +171,10 @@ def device_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event timings, in ms."""
+def time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
+    """Device ms a call: CUDA events around ``inner`` back-to-back calls
+    (so the host's launch cost hides behind the queue, as on the path),
+    median over ``reps`` such runs."""
     for _ in range(warmup):
         fn()
     times = []
@@ -164,10 +182,11 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     times.sort()
     return times[len(times) // 2]
 
@@ -194,18 +213,30 @@ def check_close(name, got, want, rtol) -> None:
                              f"rtol=atol={rtol}")
 
 
-def kernel_case(name, dtype, k, copy_bps, n=N_RESNET18):
-    """One kernel at one dtype and K against its plain version."""
+def kernel_case(name, dtype, k, copy_bps, n=N_RESNET18, view=(0, 0)):
+    """One kernel at one dtype and K against its plain version; the
+    eager fold on views ``acc_buf[view[0]:]`` and ``u_buf[view[1]:]``,
+    bit-equal, and timed beside its first design too."""
     g = torch.Generator(device="cuda").manual_seed(0)
     acc0 = torch.randn(n, generator=g, device="cuda")
     esz = torch.tensor([], dtype=dtype).element_size()
+    previous = None
     if name == "eager_accumulate":
-        u = torch.randn(n, generator=g, device="cuda").to(dtype)
+        a_off, u_off = view
+        u = torch.randn(n + u_off, generator=g,
+                        device="cuda").to(dtype)[u_off:]
         w = 1.75
-        got = ops.eager_accumulate(acc0.clone(), u, w, impl="cuda")
+        acc = torch.empty(n + a_off, device="cuda")[a_off:].copy_(acc0)
+        ptr = acc.data_ptr()
         want = ref.eager_accumulate_ref(acc0, u, w)
-        acc = acc0.clone()
+        got = ops.eager_accumulate(acc, u, w, impl="cuda").clone()
+        torch.cuda.synchronize()
+        if acc.data_ptr() != ptr or not torch.equal(got, want):
+            raise AssertionError(f"eager_accumulate[{dtype}, view {view}]: "
+                                 "not bit-equal in place")
         run = lambda: ops.eager_accumulate(acc, u, w, impl="cuda")
+        previous = lambda: fed.eager_accumulate_cuda(
+            acc, u, w, kernel=fed.EAGER_PREVIOUS)
         plain = lambda: ref.eager_accumulate_ref(acc, u, w)
         library = lambda: torch.add(acc, u, alpha=w, out=acc)
         nbytes = (8 + esz) * n
@@ -237,10 +268,17 @@ def kernel_case(name, dtype, k, copy_bps, n=N_RESNET18):
     check_close(f"{name}[{dtype}, K={k}]", got, want, RTOL[name])
     max_abs, max_rel = errors(got, want)
     del got, want
+    # the eager fold's two designs in turns (new, first, first, new),
+    # the better median of each
+    ms = time_ms(run)
+    prev_ms = None
+    if previous:
+        prev_ms = min(time_ms(previous), time_ms(previous))
     row = {
         "name": name, "dtype": str(dtype).replace("torch.", ""), "K": k,
-        "N": n, "max_abs_err": max_abs, "max_rel_err": max_rel,
-        "ms": time_ms(run), "plain_ms": time_ms(plain),
+        "N": n, "view": list(view), "max_abs_err": max_abs,
+        "max_rel_err": max_rel, "ms": min(ms, time_ms(run)),
+        "previous_ms": prev_ms, "plain_ms": time_ms(plain),
         "library_ms": time_ms(library) if library else None,
         "bytes": nbytes, "flops": flops,
         # the larger of moving the bytes once and doing the operations
@@ -254,14 +292,16 @@ def kernel_case(name, dtype, k, copy_bps, n=N_RESNET18):
 
 def phase_kernels(copy_bps):
     rows = []
-    cases = [("eager_accumulate", torch.float32, 1),
-             ("eager_accumulate", torch.bfloat16, 1),
-             ("eager_accumulate", torch.float16, 1),
-             ("fedavg_accumulate_k", torch.float32, 8),
-             ("fedavg_accumulate_k", torch.bfloat16, 8),
-             ("fedavg_reduce", torch.float32, 8)]
-    for name, dtype, k in cases:
-        row = kernel_case(name, dtype, k, copy_bps)
+    cases = [("eager_accumulate", torch.float32, 1, (0, 0)),
+             ("eager_accumulate", torch.float32, 1, (1, 3)),
+             ("eager_accumulate", torch.bfloat16, 1, (0, 0)),
+             ("eager_accumulate", torch.bfloat16, 1, (1, 3)),
+             ("eager_accumulate", torch.float16, 1, (0, 0)),
+             ("fedavg_accumulate_k", torch.float32, 8, (0, 0)),
+             ("fedavg_accumulate_k", torch.bfloat16, 8, (0, 0)),
+             ("fedavg_reduce", torch.float32, 8, (0, 0))]
+    for name, dtype, k, view in cases:
+        row = kernel_case(name, dtype, k, copy_bps, view=view)
         log("kernel_case " + json.dumps(row))
         rows.append(row)
     return rows
@@ -453,8 +493,9 @@ def visible_pairs(S: int, window: int) -> int:
 
 
 def flash_row(label, q, k, v, window):
-    """The flash kernel on (q, k, v) against its plain version, timed
-    beside the library's attention on the same inputs."""
+    """The flash kernel that takes (q, k, v) against its plain version,
+    timed beside the library's attention on the same inputs and, for
+    16-bit inputs, beside the CUDA-core kernel (``previous_ms``)."""
     B, S, K, G, D = q.shape
     Dv = v.shape[-1]
     H = K * G
@@ -462,11 +503,15 @@ def flash_row(label, q, k, v, window):
     kw = dict(window=window, causal=True, scale=scale)
     run = lambda: fa_ops.flash_attention(q, k, v, impl="cuda", **kw)
     plain = lambda: fa_ops.flash_attention(q, k, v, impl="torch", **kw)
-    n0 = FLASH.launches
+    simt = lambda: flash_attention_fwd_cuda(q, k, v, variant="simt", **kw)
+    kern = FLASH_SIMT if q.dtype == torch.float32 else FLASH_WGMMA
+    n0 = [kn.launches for kn in FA_KERNELS]
     got, want = run(), plain()
     torch.cuda.synchronize()
-    if FLASH.launches != n0 + 1:
-        raise AssertionError(f"flash[{label}]: the kernel did not launch")
+    moved = [kn.launches - c for kn, c in zip(FA_KERNELS, n0)]
+    if moved != [int(kn is kern) for kn in FA_KERNELS]:
+        raise AssertionError(f"flash[{label}]: launches {moved}, not one of "
+                             f"{kern.name}")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"flash[{label}]: non-finite output")
     tol = FLASH_TOL[q.dtype]
@@ -489,11 +534,18 @@ def flash_row(label, q, k, v, window):
     flops = 2 * B * H * visible_pairs(S, window) * (D + Dv)
     peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
     reps = 25 if S <= 256 else 10
+    # the two designs in turns (wgmma, CUDA cores, CUDA cores, wgmma)
+    ms = time_ms(run, reps=reps)
+    prev_ms = None
+    if kern is FLASH_WGMMA:
+        prev_ms = min(time_ms(simt, reps=reps), time_ms(simt, reps=reps))
     return {
         "case": label, "dtype": str(q.dtype).replace("torch.", ""),
+        "kernel": kern.name,
         "shape": [B, S, K, G, D, Dv], "window": window, "tol": tol,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
-        "ms": time_ms(run, reps=reps), "plain_ms": time_ms(plain, reps=reps),
+        "ms": min(ms, time_ms(run, reps=reps)), "previous_ms": prev_ms,
+        "plain_ms": time_ms(plain, reps=reps),
         "library_ms": time_ms(library, reps=reps),
         "bytes": nbytes, "flops": flops,
         "bound_ms": max(nbytes / NOMINAL_BPS, flops / peak) * 1e3,
@@ -503,23 +555,27 @@ def flash_row(label, q, k, v, window):
 
 
 def phase_flash():
-    """The flash kernel on random inputs: the serve path's shape in bf16
-    and fp32, and the JAX package's four kernel-test shapes."""
+    """The flash kernels on random inputs: the serve path's shape,
+    gemma3's and h2o-danube-3-4b's, and the JAX package's four
+    kernel-test shapes.  -> the rows by (case, dtype)."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = [("path", 4, 2000, 8, 3, 128, GLOBAL),
-             ("test0", 1, 128, 1, 1, 32, GLOBAL),
-             ("test1", 2, 256, 2, 3, 64, GLOBAL),
-             ("test2", 1, 256, 4, 1, 64, 64),
-             ("test3", 2, 192, 2, 2, 32, 16)]
-    rows = []
-    for label, B, S, K, G, D, window in cases:
-        for dtype in (torch.bfloat16, torch.float32):
+    every = (torch.bfloat16, torch.float16, torch.float32)
+    cases = [("path", 4, 2000, 8, 3, 128, GLOBAL, every),
+             ("gemma3", 4, 2000, 4, 2, 256, 1024, (torch.bfloat16,)),
+             ("h2o_danube3", 4, 2000, 8, 4, 120, 4096, (torch.bfloat16,)),
+             ("test0", 1, 128, 1, 1, 32, GLOBAL, every),
+             ("test1", 2, 256, 2, 3, 64, GLOBAL, every),
+             ("test2", 1, 256, 4, 1, 64, 64, every),
+             ("test3", 2, 192, 2, 2, 32, 16, every)]
+    rows = {}
+    for label, B, S, K, G, D, window, dtypes in cases:
+        for dtype in dtypes:
             mk = lambda *shape: torch.randn(shape, generator=g,
                                             device="cuda").to(dtype)
             row = flash_row(label, mk(B, S, K, G, D), mk(B, S, K, D),
                             mk(B, S, K, D), window)
             log("flash_case " + json.dumps(row))
-            rows.append(row)
+            rows[label, row["dtype"]] = row
     return rows
 
 
@@ -585,7 +641,7 @@ def device_time_split(fn):
             continue
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
-        if "flash_fwd_kernel" in name:
+        if "flash_fwd" in name:        # either flash kernel
             split["flash_ms"] += ms
         elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
             split["matmul_ms"] += ms
@@ -627,14 +683,17 @@ def phase_serve(copy_bps):
 
     torch.cuda.reset_peak_memory_stats()
     with flash_calls(capture):
-        FLASH.launches = 0
+        for kern in FA_KERNELS:
+            kern.launches = 0
         logits, toks, prefill_s, lat, caches = serve(
             model, params, prompts, LM_STEPS, torch.device("cuda"))
-        launches = FLASH.launches
+        launches = FLASH_WGMMA.launches
+        simt_launches = FLASH_SIMT.launches
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.num_layers:
-        raise AssertionError(f"the prefill launched the flash kernel "
-                             f"{launches} times, not {cfg.num_layers}")
+    if launches != cfg.num_layers or simt_launches != 0:
+        raise AssertionError(f"the bf16 prefill launched the wgmma kernel "
+                             f"{launches} times (not {cfg.num_layers}) and "
+                             f"the CUDA-core one {simt_launches} (not 0)")
     if tuple(logits.shape) != (LM_BATCH, 1 + LM_STEPS, cfg.vocab_size):
         raise AssertionError(f"logits {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
@@ -652,7 +711,8 @@ def phase_serve(copy_bps):
         "decode_p50_ms": float(np.percentile(lat_ms, 50)),
         "decode_p99_ms": float(np.percentile(lat_ms, 99)),
         "decode_tok_s": LM_BATCH * LM_STEPS / sum(lat),
-        "peak_mem_gb": peak / 1e9, "flash_launches": launches,
+        "peak_mem_gb": peak / 1e9, "flash_wgmma_launches": launches,
+        "flash_simt_launches": simt_launches,
         "tokens_0": toks[0, :8].tolist()}
     log("serve " + json.dumps(row))
     log("serve_prefill_device " + json.dumps(device_time_split(
@@ -701,8 +761,15 @@ def phase_lm_checks():
 
     cpu_logits, cpu_toks, *_ = serve(model, params, prompts, steps,
                                      torch.device("cpu"))
+    for kern in FA_KERNELS:
+        kern.launches = 0
     card_logits, card_toks, *_ = serve(model, p_card, prompts.to(cuda),
                                        steps, cuda)
+    simt_launches = FLASH_SIMT.launches
+    if simt_launches != model.cfg.num_layers or FLASH_WGMMA.launches:
+        raise AssertionError(f"the fp32 serve loop launched the CUDA-core "
+                             f"flash kernel {simt_launches} times and the "
+                             f"wgmma one {FLASH_WGMMA.launches}")
 
     def roll_first(i, orig, q, k, v, *args, **kw):
         if i == 0:      # the KV heads of the first layer, one head off
@@ -727,7 +794,7 @@ def phase_lm_checks():
         "planted_card_vs_planted_cpu": both_planted,
         "planted_same_tokens": bool((bad_toks.cpu() == bad_cpu_toks).all()),
         "atol": LM_PARITY_ATOL, "same_greedy_tokens": same_tokens,
-        "steps": steps}))
+        "steps": steps, "flash_simt_launches": simt_launches}))
     if not both_planted <= LM_PARITY_ATOL:
         raise AssertionError(f"with the planted fault, card vs CPU logits: "
                              f"{both_planted:.3e} > {LM_PARITY_ATOL}")
@@ -739,6 +806,7 @@ def phase_lm_checks():
     if not planted > LM_PARITY_ATOL:
         raise AssertionError(f"rolled KV heads moved the logits by "
                              f"{planted:.3e}, inside {LM_PARITY_ATOL}")
+    return simt_launches
 
 
 # ---------------------------------------------------------------------------
@@ -839,7 +907,7 @@ def phase_quant():
 
 
 def all_kernels():
-    return (*fed.KERNELS, FLASH, *Q_KERNELS)
+    return (*fed.KERNELS, *FA_KERNELS, *Q_KERNELS)
 
 
 def fused_split(fn):
@@ -1107,9 +1175,9 @@ def main() -> int:
 
     # phase 2: build (one nvcc per source, all at once) + copy bandwidth
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        libs = list(pool.map(lambda lib: lib.build(),
-                             (fed.LIB, FA_LIB, Q_LIB)))
+    sources = (fed.LIB, *FA_LIBS, Q_LIB)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(lambda lib: lib.build(), sources))
     log(f"build: {', '.join(str(l.relative_to(ROOT)) for l in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
     copy_bps = copy_bandwidth()
@@ -1126,10 +1194,10 @@ def main() -> int:
     rounds, launches, k_main = phase_round()
     phase_parity()
 
-    # phases 6-8: the flash kernel, the serve path, the LM checks
-    phase_flash()
+    # phases 6-8: the flash kernels, the serve path, the LM checks
+    flash_rows = phase_flash()
     serve_row, flash_launches, flash_main = phase_serve(copy_bps)
-    phase_lm_checks()
+    simt_launches = phase_lm_checks()
 
     # phases 10-12: the quantize kernels, the fused round, its parity
     _, quant_rows = phase_quant()
@@ -1142,7 +1210,7 @@ def main() -> int:
     main_k = {"eager_accumulate": 1, "fedavg_accumulate_k": max(k_main, 2),
               "fedavg_reduce": 8}
     measured = {(r["name"], r["K"]): r for r in cases
-                if r["dtype"] == "float32"}
+                if r["dtype"] == "float32" and r["view"] == [0, 0]}
     out = []
     for kern in fed.KERNELS:
         k = main_k[kern.name]
@@ -1153,18 +1221,30 @@ def main() -> int:
             "source": "src/repro_torch/kernels/fedavg/csrc/fedavg.cu",
             "replaces": kern.replaces, "launches": launches[kern.name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            **({"previous_ms": row["previous_ms"]}
+               if kern is fed.EAGER else {}),
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "K": row["K"], "N": row["N"],
             "bound_copy_ms": row["bound_copy_ms"]})
     kernel_ms = sum(launches[o["name"]] * o["ms"] for o in out) / 1e3
+    flash_src = "src/repro_torch/kernels/flash_attention/csrc/"
     out.append({
-        "name": FLASH.name, "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": FLASH.replaces, "launches": flash_launches,
-        "launches_fused_round": fused_row["launches_int8"][FLASH.name],
+        "name": FLASH_WGMMA.name, "route": "cuda",
+        "source": flash_src + "flash_attention_sm90.cu",
+        "replaces": FLASH_WGMMA.replaces, "launches": flash_launches,
+        "launches_fused_round": fused_row["launches_int8"][FLASH_WGMMA.name],
         **{k: flash_main[k] for k in (
+            "max_abs_err", "ms", "previous_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shape", "dtype")}})
+    simt_row = flash_rows["path", "float32"]
+    out.append({
+        "name": FLASH_SIMT.name, "route": "cuda",
+        "source": flash_src + "flash_attention.cu",
+        "replaces": FLASH_SIMT.replaces, "launches": simt_launches,
+        "launches_path": "phase 8: the fp32 serve loop on the card",
+        "launches_fused_round": fused_row["launches_int8"][FLASH_SIMT.name],
+        **{k: simt_row[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "dtype")}})
     for kern in Q_KERNELS:

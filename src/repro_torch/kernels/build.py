@@ -61,20 +61,24 @@ class CudaLibrary:
     """One ``.cu`` source, built once and loaded once per process.
 
     ``signatures`` maps each C entry to its ``ctypes`` argument types;
-    every entry returns ``int``."""
+    every entry returns ``int``.  ``extra_flags`` are this library's own
+    ``nvcc`` flags after ``NVCC_FLAGS`` (e.g. ``-lcuda``), hashed into
+    its name as they are."""
 
     def __init__(self, src: Path, name: str,
-                 signatures: Dict[str, Sequence[Any]]):
+                 signatures: Dict[str, Sequence[Any]],
+                 extra_flags: Sequence[str] = ()):
         self.src = src
         self.name = name
         self.signatures = signatures
+        self.extra_flags = tuple(extra_flags)
         self._lib: Optional[Any] = None
         self._lock = threading.Lock()
 
     def path(self) -> Path:
         """Where the built library for the current source and flags lives."""
         h = hashlib.sha256(self.src.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join((*NVCC_FLAGS, *self.extra_flags)).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
@@ -84,7 +88,8 @@ class CudaLibrary:
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.src)]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.src),
+               *self.extra_flags]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -116,9 +121,12 @@ class CudaKernel:
         self.symbol = symbol
         self.replaces = replaces      # the TPU kernel, file:line
         self.launches = 0
+        self._fn: Optional[Any] = None
 
     def launch(self, *args) -> None:
-        rc = getattr(self.lib.load(), self.symbol)(*args)
+        if self._fn is None:          # looked up once: launches are hot
+            self._fn = getattr(self.lib.load(), self.symbol)
+        rc = self._fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
         self.launches += 1

@@ -23,6 +23,8 @@ _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 LIB = CudaLibrary(
     Path(__file__).with_name("csrc") / "fedavg.cu", "fedavg", {
         "fedavg_eager_accumulate": [_p, _p, _i64, _i32, ctypes.c_float, _p],
+        "fedavg_eager_accumulate_previous": [_p, _p, _i64, _i32,
+                                             ctypes.c_float, _p],
         "fedavg_accumulate_k": [_p, _p, _p, _i64, _i64, _i32, _p],
         "fedavg_reduce": [_p, _p, _p, _i64, _i64, _i32, _p],
     })
@@ -35,6 +37,10 @@ ACCUMULATE_K = CudaKernel("fedavg_accumulate_k", LIB, "fedavg_accumulate_k",
 REDUCE = CudaKernel("fedavg_reduce", LIB, "fedavg_reduce",
                     "src/repro/kernels/fedavg/fedavg.py:40")
 KERNELS = (EAGER, ACCUMULATE_K, REDUCE)
+#: the eager fold's first design, on no path: timed beside EAGER
+EAGER_PREVIOUS = CudaKernel(
+    "eager_accumulate_previous", LIB, "fedavg_eager_accumulate_previous",
+    EAGER.replaces)
 
 
 def _check(t: torch.Tensor, what: str, device: torch.device,
@@ -61,8 +67,11 @@ def _stream(device: torch.device) -> int:
 
 
 def eager_accumulate_cuda(acc: torch.Tensor, update: torch.Tensor,
-                          weight: float) -> torch.Tensor:
-    """acc += w·u in place (fp32 acc, any wire dtype); returns ``acc``."""
+                          weight: float, *,
+                          kernel: CudaKernel = EAGER) -> torch.Tensor:
+    """acc += w·u in place (fp32 acc, any wire dtype); returns ``acc``.
+    Either may be a contiguous view at any offset.  ``kernel`` is EAGER,
+    or EAGER_PREVIOUS to time the first design."""
     _check(acc, "acc", acc.device, 1)
     _check(update, "update", acc.device, 1)
     if acc.dtype != torch.float32:
@@ -71,8 +80,8 @@ def eager_accumulate_cuda(acc: torch.Tensor, update: torch.Tensor,
         raise ValueError(f"update {tuple(update.shape)} != acc "
                          f"{tuple(acc.shape)}")
     code = _wire_code(update, "update")
-    EAGER.launch(acc.data_ptr(), update.data_ptr(), acc.numel(), code,
-                 float(np.float32(weight)), _stream(acc.device))
+    kernel.launch(acc.data_ptr(), update.data_ptr(), acc.numel(), code,
+                  float(np.float32(weight)), _stream(acc.device))
     return acc
 
 

@@ -1,0 +1,963 @@
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores: causal /
+// sliding-window GQA attention in bf16 or fp16 with an online softmax.
+//
+// Replaces _flash_fwd_kernel behind flash_attention_fwd_pallas
+// (src/repro/kernels/flash_attention/flash_attention.py:89), for 16-bit
+// inputs; fp32 inputs keep the CUDA-core kernel (flash_attention.cu), whose
+// IEEE fp32 arithmetic meets the fp32 tolerance of 2e-6 that TF32 tensor
+// cores (about three digits) cannot.  For query head h = kh*G + g of batch b:
+//
+//   s[i, j]   = (q[b, i, h, :] . k[b, j, kh, :]) * scale
+//   visible   = j < S  &&  (!causal || i >= j)  &&  (window < 0 || i - j < window)
+//   out[b, i, h, :] = sum_j softmax_j(visible ? s : -1e30) * v[b, j, kh, :]
+//
+// with the running (m, l, acc) of each row in fp32 across KV tiles, as the
+// TPU kernel carries them across its sequential kv grid axis, written as
+// acc / max(l, 1e-30) in v's dtype.
+//
+// What bounds it on the card.  At the serve path's prefill (B = 4,
+// S = 2000, 24 query heads over 8 KV heads, D = 128) a launch does 98 GFLOP
+// of causal pairs over 12 MB: the bf16 tensor-core peak bounds it (about
+// 0.1 ms).  The CUDA-core kernel runs fp32 FMA at a fifteenth of that rate,
+// widens every tile in shared memory, and loads it with the whole block.
+// This design, for the card:
+//   * both products on the tensor cores through wgmma with fp32
+//     accumulation.  S = Q.K^T (m64 nBN k16) takes Q and K from shared
+//     memory, both K-major ([row][d]), so K needs no transpose.  O += P.V
+//     (m64 n(64 P) k16) takes P from registers: S's accumulator fragment,
+//     scaled, exponentiated and packed to 16-bit pairs, is the A-register
+//     fragment as it stands (thread t holds rows 16 w + t/4 and +8, columns
+//     2 (t%4) + {0, 1} of every 8-column chunk in both).  V ([key][dv], MN-
+//     major) goes in through the descriptor's transpose bit;
+//   * asynchronous copies: TMA (cp.async.bulk.tensor, 4-D maps over the
+//     model's (B, S, heads, D) layout, so no transpose is materialised)
+//     loads the block's Q once and streams K and V tiles through a ring of
+//     kStages stages in shared memory, each with a full and an empty
+//     mbarrier.  One producer warp issues the copies; the consumer
+//     warpgroups run wgmma, so the next tiles' copies overlap this tile's
+//     products.  The maps' 128-byte swizzle is the descriptors' (a 16-bit
+//     row of 64 columns is 128 B; D = 128 is two panels, D = 256 four);
+//   * head dims are padded to panels of 64 with zeros that TMA fills past
+//     D (D = 120 contracts over 128; Dv = 120 computes 8 zero columns that
+//     are not written).  Up to 128 columns: two consumer warpgroups (128
+//     query rows) a block and KV tiles of BN = 128 keys, so the per-tile
+//     costs (barriers, row reductions, rescaling the accumulator) are
+//     paid once for 128 keys.  At 192 and 256, where the 64 x 256 fp32
+//     accumulator takes 128 registers a thread: one warpgroup, BN = 64;
+//   * KV tiles wholly above the diagonal or outside the window are not
+//     loaded; a warpgroup skips the products of a loaded tile that is dead
+//     for its 64 rows; only tiles that cross the diagonal, the window edge
+//     or S run the mask.  The masked value is -1e30, never -inf: a wholly
+//     masked stretch before a row's first visible key is wiped by
+//     corr = exp2(-1e30 - m) = 0, as in the TPU kernel.  Query tiles run
+//     last-first, so the longest causal blocks start first;
+//   * the row max and sum reduce across the quad of threads that share a
+//     row (two xor-shuffles); the sum stays per thread until the end;
+//   * exp2 (ex2.approx) with scale * log2(e) folded into the scores: on
+//     16-bit inputs the tolerance is 2e-2, and P.V rounds P to 16 bits
+//     anyway.  Q.K^T loses nothing against the TPU kernel's fp32 upcast:
+//     products of 16-bit values are exact in fp32; only the order of the
+//     sums differs.
+//
+// dtype code: 1 bf16, 2 fp16 (q, k, v and out share it).  D and Dv up to
+// 256 and multiples of 8, the pointers 16-byte aligned (TMA's strides and
+// addresses); the wrapper sends anything else to the CUDA-core kernel.
+// The tensor maps are built on the host at each launch with
+// cuTensorMapEncodeTiled (link with -lcuda).  The entry returns
+// cudaGetLastError(), or -CUresult if a map cannot be encoded.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -shared -Xcompiler -fPIC -lcuda -o libflash_sm90.so
+//        flash_attention_sm90.cu
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kBM = 64;                 // query rows a consumer warpgroup
+constexpr int kQPanelBytes = kBM * 128; // 64 rows of one 128-byte panel
+constexpr int kMaxDim = 256;
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// PTX: shared-memory addresses, mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+
+// Wait until the barrier's phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory; completes on ``bar``.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The products, one inline-PTX wrapper a shape and type.
+// ss: m64n64k16, A (Q) and B (K) K-major in shared memory.
+// rs: m64nNk16, A (P) in registers, B (V) MN-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n64k16_bf16(
+    float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n128k16_bf16(
+    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64k16_bf16(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128k16_bf16(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n192k16_bf16(
+    float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n256k16_bf16(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n64k16_f16(
+    float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n128k16_f16(
+    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64k16_f16(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128k16_f16(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n192k16_f16(
+    float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n256k16_f16(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <typename T>
+struct Ops;
+
+template <>
+struct Ops<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  template <int N>
+  static __device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    if constexpr (N == 64) wgmma_ss_m64n64k16_bf16(d, da, db, scale_d);
+    if constexpr (N == 128) wgmma_ss_m64n128k16_bf16(d, da, db, scale_d);
+  }
+  template <int N>
+  static __device__ __forceinline__ void rs(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    if constexpr (N == 64) wgmma_rs_m64n64k16_bf16(d, a, db);
+    if constexpr (N == 128) wgmma_rs_m64n128k16_bf16(d, a, db);
+    if constexpr (N == 192) wgmma_rs_m64n192k16_bf16(d, a, db);
+    if constexpr (N == 256) wgmma_rs_m64n256k16_bf16(d, a, db);
+  }
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+template <>
+struct Ops<__half> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  template <int N>
+  static __device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    if constexpr (N == 64) wgmma_ss_m64n64k16_f16(d, da, db, scale_d);
+    if constexpr (N == 128) wgmma_ss_m64n128k16_f16(d, da, db, scale_d);
+  }
+  template <int N>
+  static __device__ __forceinline__ void rs(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    if constexpr (N == 64) wgmma_rs_m64n64k16_f16(d, a, db);
+    if constexpr (N == 128) wgmma_rs_m64n128k16_f16(d, a, db);
+    if constexpr (N == 192) wgmma_rs_m64n192k16_f16(d, a, db);
+    if constexpr (N == 256) wgmma_rs_m64n256k16_f16(d, a, db);
+  }
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// P: 64-column panels of the (padded) head dims.  Up to two panels, two
+// consumer warpgroups and 128 keys a tile; at three or four, whose
+// accumulator takes up to 128 registers a thread, one and 64.
+template <int P>
+struct Config {
+  static constexpr int kNC = P <= 2 ? 2 : 1;        // consumer warpgroups
+  static constexpr int kBN = P <= 2 ? 128 : 64;     // keys a KV tile
+  static constexpr int kStages = P == 1 ? 3 : 2;
+  static constexpr int kThreads = kNC * 128 + 32;   // + one producer warp
+  static constexpr int kQBytes = kNC * P * kQPanelBytes;
+  static constexpr int kPanelBytes = kBN * 128;     // one K (or V) panel
+  static constexpr int kTileBytes = P * kPanelBytes;  // one K (or V) tile
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
+  // + the barriers, + slack to align the base to 1024 bytes
+  static constexpr int kSmem = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <typename T, int P>
+__global__ void __launch_bounds__(Config<P>::kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           T* __restrict__ o, int S, int H, int KH, int Dv,
+                           float scale_log2, int window, int causal) {
+  using C = Config<P>;
+  constexpr int NC = C::kNC, kStages = C::kStages, kBN = C::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: every panel starts on one
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t s_q = smem_u32(smem);
+  const uint32_t s_k = s_q + C::kQBytes;
+  const uint32_t s_v = s_k + kStages * C::kTileBytes;
+  const uint32_t bar_q = s_q + C::kBarOffset;
+  const uint32_t bar_full = bar_q + 8;                 // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;   // [kStages]
+
+  constexpr int BMb = NC * kBM;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BMb;   // long tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / KH);
+  // the KV tiles some row of the block sees
+  const int n_kv = (S + kBN - 1) / kBN;
+  int t_end = n_kv;
+  if (causal) t_end = min(n_kv, (q0 + BMb - 1) / kBN + 1);
+  int t_begin = 0;
+  if (window >= 0 && q0 - window + 1 > 0) t_begin = (q0 - window + 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NC * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NC) {
+    // ---- producer: one thread issues every copy ----
+    if (threadIdx.x != NC * 128) return;
+    mbar_expect_tx(bar_q, C::kQBytes);
+    for (int c = 0; c < NC; ++c)
+      for (int p = 0; p < P; ++p)
+        tma_load_4d(s_q + (c * P + p) * kQPanelBytes, &tm_q, bar_q, 64 * p,
+                    h, q0 + c * kBM, b);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      mbar_wait(bar_empty + 8 * stage, phase ^ 1);   // the slot is free
+      const uint32_t full = bar_full + 8 * stage;
+      mbar_expect_tx(full, 2 * C::kTileBytes);
+      for (int p = 0; p < P; ++p) {
+        const uint32_t off = stage * C::kTileBytes + p * C::kPanelBytes;
+        tma_load_4d(s_k + off, &tm_k, full, 64 * p, kh, t * kBN, b);
+        tma_load_4d(s_v + off, &tm_v, full, 64 * p, kh, t * kBN, b);
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns query rows r_lo .. r_lo + 63 ----
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int r_lo = q0 + wg * kBM;
+  const int row0 = r_lo + warp * 16 + lane / 4;   // and row0 + 8
+  const int cq = 2 * (lane % 4);                  // column in each 8-chunk
+  const uint32_t q_base = s_q + wg * P * kQPanelBytes;
+
+  float acc[P * 32];
+#pragma unroll
+  for (int i = 0; i < P * 32; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int kv0 = t * kBN;
+    mbar_wait(bar_full + 8 * stage, phase);
+    const bool dead = (causal && kv0 > r_lo + kBM - 1) ||
+                      (window >= 0 && kv0 + kBN - 1 <= r_lo - window);
+    if (!dead) {
+      const uint32_t k_base = s_k + stage * C::kTileBytes;
+      const uint32_t v_base = s_v + stage * C::kTileBytes;
+      // S = Q.K^T over P panels of 4 k16 steps (32 bytes each)
+      float s[kBN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          Ops<T>::template ss<kBN>(
+              s, sw128_desc(q_base + p * kQPanelBytes + kk * 32, 16, 1024),
+              sw128_desc(k_base + p * C::kPanelBytes + kk * 32, 16, 1024),
+              (p | kk) != 0);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      const bool edge = (causal && kv0 + kBN - 1 > r_lo) ||
+                        (window >= 0 && kv0 <= r_lo + kBM - 1 - window) ||
+                        kv0 + kBN > S;
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) {
+          const int row = row0 + 8 * ((i / 2) % 2);
+          const int col = kv0 + (i / 4) * 8 + cq + (i % 2);
+          bool ok = col < S;
+          if (causal) ok = ok && row >= col;
+          if (window >= 0) ok = ok && row - col < window;
+          s[i] = ok ? s[i] * scale_log2 : kNegInf;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) s[i] *= scale_log2;
+      }
+
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i)
+          if ((i / 2) % 2 == hh) mx = fmaxf(mx, s[i]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        corr[hh] = ex2(m[hh] - m_new);
+        m[hh] = m_new;
+      }
+      float ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        s[i] = ex2(s[i] - m[(i / 2) % 2]);
+        ps[(i / 2) % 2] += s[i];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * corr[hh] + ps[hh];
+#pragma unroll
+      for (int i = 0; i < P * 32; ++i) acc[i] *= corr[(i / 2) % 2];
+
+      // O += P.V: S's fragment is P's A fragment, k16 step kk holding
+      // s[8 kk .. 8 kk + 7] as four 16-bit pairs
+      uint32_t pa[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pa[kk][j] = Ops<T>::pack(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        // 16 keys of 128-byte rows a step; panels of 64 dv columns apart
+        Ops<T>::template rs<P * 64>(
+            acc, pa[kk],
+            sw128_desc(v_base + kk * 16 * 128, C::kPanelBytes, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    mbar_arrive(bar_empty + 8 * stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // ---- epilogue: acc / max(l, 1e-30), two rows a thread ----
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[hh], 1e-30f);
+    T* orow = o + ((int64_t)b * S + row) * H * Dv + (int64_t)h * Dv;
+#pragma unroll
+    for (int c = 0; c < P * 8; ++c) {       // 8-column chunks
+      const int col = c * 8 + cq;
+      if (col < Dv) {
+        const uint32_t v = Ops<T>::pack(acc[4 * c + 2 * hh] / denom,
+                                        acc[4 * c + 2 * hh + 1] / denom);
+        *reinterpret_cast<uint32_t*>(orow + col) = v;
+      }
+    }
+  }
+}
+
+// A 4-D map over (B, S, heads, dim) with a box of ``rows`` rows x 64
+// columns of one head: row stride heads * dim elements.
+CUresult make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                  int B, int S, int heads, int dim, int rows) {
+  const cuuint64_t esz = 2;
+  cuuint64_t dims[4] = {(cuuint64_t)dim, (cuuint64_t)heads, (cuuint64_t)S,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {dim * esz, (cuuint64_t)heads * dim * esz,
+                           (cuuint64_t)S * heads * dim * esz};
+  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(
+      map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <typename T, int P>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int H, int KH, int D, int Dv, float scale, int window,
+           int causal, cudaStream_t stream) {
+  using C = Config<P>;
+  const CUtensorMapDataType type = Ops<T>::kMapType;
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map(&tq, type, q, B, S, H, D, kBM);
+  if (r == CUDA_SUCCESS) r = make_map(&tk, type, k, B, S, KH, D, C::kBN);
+  if (r == CUDA_SUCCESS) r = make_map(&tv, type, v, B, S, KH, Dv, C::kBN);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  auto kern = flash_fwd_wgmma_kernel<T, P>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((S + C::kNC * kBM - 1) / (C::kNC * kBM), H, B);
+  kern<<<grid, C::kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), S, H, KH, Dv, scale * kLog2e, window,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_panels(const void* q, const void* k, const void* v, void* o,
+                    int B, int S, int H, int KH, int D, int Dv, float scale,
+                    int window, int causal, cudaStream_t st) {
+  const int pd = (D + 63) / 64, pv = (Dv + 63) / 64;
+  switch (pd > pv ? pd : pv) {
+    case 1: return launch<T, 1>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, st);
+    case 2: return launch<T, 2>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, st);
+    case 3: return launch<T, 3>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, st);
+    case 4: return launch<T, 4>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B, S, H, D), k (B, S, KH, D), v (B, S, KH, Dv), out (B, S, H, Dv),
+// all contiguous and 16-byte aligned; H a multiple of KH; D and Dv
+// multiples of 8 up to 256; window < 0 is GLOBAL.
+int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
+                             void* o, int B, int S, int H, int KH, int D,
+                             int Dv, float scale, int window, int causal,
+                             int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || D <= 0 || Dv <= 0 ||
+      D > kMaxDim || Dv > kMaxDim || D % 8 != 0 || Dv % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1: return dispatch_panels<__nv_bfloat16>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, st);
+    case 2: return dispatch_panels<__half>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -1,16 +1,23 @@
-"""Launch the flash-attention forward CUDA kernel
-(``csrc/flash_attention.cu``), the port of ``flash_attention_fwd_pallas``.
+"""Launch the flash-attention forward CUDA kernels, the ports of
+``flash_attention_fwd_pallas``: ``csrc/flash_attention_sm90.cu`` (wgmma
+on the tensor cores, TMA-fed K/V ring) for bf16 and fp16, and
+``csrc/flash_attention.cu`` (fp32 FMA on the CUDA cores) for fp32, whose
+tolerance of 2e-6 the tensor cores' TF32 cannot meet.
 
-The source is built at first use and loaded with ``ctypes`` by
-``kernels/build.py``; nothing here runs at import.  The wrapper checks
-device, dtype, shapes and contiguity, raises on what the kernel does not
-take, allocates the output, launches on PyTorch's current stream
-without synchronising, and counts the launch in ``FLASH.launches``.
+``flash_variant`` makes the choice from dtype, head dims and alignment
+before launch; it is not a fallback: on a CUDA tensor the chosen kernel
+runs or the wrapper raises.  The sources are built at first use and
+loaded with ``ctypes`` by ``kernels/build.py``; nothing here runs at
+import.  The wrapper checks device, dtype, shapes and contiguity,
+raises on what the kernels do not take, allocates the output, launches
+on PyTorch's current stream without synchronising, and counts the
+launch in ``FLASH_WGMMA.launches`` or ``FLASH_SIMT.launches``.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -18,30 +25,54 @@ import torch
 from repro_torch.kernels.build import DTYPE_CODES, CudaKernel, CudaLibrary
 from repro_torch.kernels.flash_attention.ref import GLOBAL
 
-#: the largest head dim the kernel takes (q/k and v alike)
+#: the largest head dim the kernels take (q/k and v alike)
 MAX_HEAD_DIM = 256
+VARIANTS = ("wgmma", "simt")
 
 _p, _i32 = ctypes.c_void_p, ctypes.c_int
-LIB = CudaLibrary(
-    Path(__file__).with_name("csrc") / "flash_attention.cu",
-    "flash_attention", {
-        "flash_attention_fwd": [_p, _p, _p, _p, _i32, _i32, _i32, _i32,
-                                _i32, _i32, ctypes.c_float, _i32, _i32,
-                                _i32, _p],
-    })
-build = LIB.build
+_ARGS = [_p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, ctypes.c_float,
+         _i32, _i32, _i32, _p]
+_CSRC = Path(__file__).with_name("csrc")
+LIB = CudaLibrary(_CSRC / "flash_attention.cu", "flash_attention",
+                  {"flash_attention_fwd": _ARGS})
+# the tensor maps are encoded with libcuda's cuTensorMapEncodeTiled
+LIB_SM90 = CudaLibrary(_CSRC / "flash_attention_sm90.cu",
+                       "flash_attention_sm90",
+                       {"flash_attention_fwd_sm90": _ARGS},
+                       extra_flags=("-lcuda",))
+LIBS = (LIB_SM90, LIB)
 
-FLASH = CudaKernel(
-    "flash_attention_fwd", LIB, "flash_attention_fwd",
-    "src/repro/kernels/flash_attention/flash_attention.py:89")
+_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:89"
+FLASH_WGMMA = CudaKernel("flash_attention_fwd_wgmma", LIB_SM90,
+                         "flash_attention_fwd_sm90", _REPLACES)
+FLASH_SIMT = CudaKernel("flash_attention_fwd_simt", LIB,
+                        "flash_attention_fwd", _REPLACES)
+KERNELS = (FLASH_WGMMA, FLASH_SIMT)
+
+
+def flash_variant(dtype: torch.dtype, d: int, dv: int,
+                  aligned: bool = True) -> str:
+    """The kernel that takes q/k head dim ``d`` and v head dim ``dv`` in
+    ``dtype``: "wgmma" for bf16 and fp16 with both dims multiples of 8
+    and every pointer 16-byte ``aligned`` (TMA's rules), else "simt"."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"the kernels take fp32, bf16 or fp16, got {dtype}")
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+        raise ValueError(f"head dims {d}, {dv}: the kernels take up to "
+                         f"{MAX_HEAD_DIM}")
+    if dtype != torch.float32 and d % 8 == 0 and dv % 8 == 0 and aligned:
+        return "wgmma"
+    return "simt"
 
 
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, scale: float,
-                             window: int = GLOBAL,
-                             causal: bool = True) -> torch.Tensor:
+                             window: int = GLOBAL, causal: bool = True,
+                             variant: Optional[str] = None) -> torch.Tensor:
     """q (B,S,K,G,D), k (B,S,K,D), v (B,S,K,Dv) -> (B,S,K,G,Dv) in v's
-    dtype: self-attention over positions ``arange(S)``."""
+    dtype: self-attention over positions ``arange(S)``.  ``variant``
+    names the kernel (``flash_variant``'s choice by default); "simt"
+    takes every input, "wgmma" only what ``flash_variant`` gives it."""
     for name, t, nd in (("q", q, 5), ("k", k, 4), ("v", v, 4)):
         if t.dim() != nd:
             raise ValueError(f"{name} must be {nd}-D, got {tuple(t.shape)}")
@@ -61,9 +92,14 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if min(B, S, K, G, D, Dv) == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, "
                          f"v {tuple(v.shape)}")
-    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
-        raise ValueError(f"head dims {D}, {Dv}: the kernel takes up to "
-                         f"{MAX_HEAD_DIM}")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    chosen = flash_variant(q.dtype, D, Dv, aligned)
+    variant = variant or chosen
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r} (one of {VARIANTS})")
+    if variant == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"the wgmma kernel does not take {q.dtype} at "
+                         f"D={D}, Dv={Dv}, aligned={aligned}")
     if window != GLOBAL and window < 0:
         raise ValueError(f"window {window}: GLOBAL ({GLOBAL}) or >= 0")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -72,9 +108,10 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              f"{t.device}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    kernel = FLASH_WGMMA if variant == "wgmma" else FLASH_SIMT
     out = torch.empty((B, S, K, G, Dv), dtype=v.dtype, device=q.device)
-    FLASH.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, K * G, K, D, Dv, float(np.float32(scale)),
-                 int(window), int(bool(causal)), code,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, S, K * G, K, D, Dv, float(np.float32(scale)),
+                  int(window), int(bool(causal)), code,
+                  torch.cuda.current_stream(q.device).cuda_stream)
     return out

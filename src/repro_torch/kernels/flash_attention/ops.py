@@ -1,8 +1,9 @@
 """The flash-attention forward through the model's attention interface:
 the (B, S, K, G, D) layout of ``models/attention.py``.
 
-``impl="auto"`` launches the CUDA kernel for a CUDA tensor and runs the
-plain PyTorch version (``ref.py``) for a CPU tensor; ``impl="cuda"``
+``impl="auto"`` launches a CUDA kernel for a CUDA tensor (the wgmma one
+for bf16 and fp16, the CUDA-core one for fp32: ``flash_variant``) and
+runs the plain PyTorch version (``ref.py``) for a CPU tensor; ``impl="cuda"``
 always launches (and raises for a CPU tensor); ``impl="torch"`` always
 runs the plain version.  On a CUDA tensor the kernel either runs or
 raises: nothing falls back to the plain version.

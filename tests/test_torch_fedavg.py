@@ -17,6 +17,7 @@ import torch
 
 from repro.core.aggregation import fedavg_oracle
 from repro.kernels import fedavg as jfed
+from repro.kernels.fedavg.ref import eager_accumulate_ref as jax_eager_ref
 from repro_torch.kernels import fedavg as tfed
 
 # the suite runs in parallel workers that share the host's cores:
@@ -71,6 +72,28 @@ def test_eager_accumulate_matches_jax_in_place(N, wire, impl):
     out = tfed.eager_accumulate(tacc, ut, 1.75, impl="torch")
     assert out is tacc and tacc.data_ptr() == ptr       # folded in place
     np.testing.assert_allclose(tacc.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("N", [1, 7, 999, 8191])
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("acc_off,u_off", [(1, 3), (3, 1), (2, 0)])
+def test_eager_accumulate_on_offset_views_matches_jax_ref(N, wire, acc_off,
+                                                          u_off):
+    """The fold of a view that starts past its buffer's first element
+    (what the CUDA kernel's scalar head and tail cover) is the JAX
+    package's fold of the same values, folded in place into the view."""
+    rng = np.random.default_rng(N + 10 * acc_off + u_off)
+    acc = rng.normal(size=(N + acc_off,)).astype(np.float32)
+    uj, ut = _both(rng.normal(size=(N + u_off,)), wire)
+    want = np.asarray(jax_eager_ref(jnp.asarray(acc[acc_off:]), uj[u_off:],
+                                    1.75))
+    tbuf = torch.from_numpy(acc.copy())
+    view = tbuf[acc_off:]
+    ptr = view.data_ptr()
+    out = tfed.eager_accumulate(view, ut[u_off:], 1.75, impl="torch")
+    assert out is view and view.data_ptr() == ptr
+    np.testing.assert_allclose(view.numpy(), want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(tbuf[:acc_off].numpy(), acc[:acc_off])
 
 
 @pytest.mark.parametrize("impl", JAX_IMPLS)

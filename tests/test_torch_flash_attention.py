@@ -6,9 +6,12 @@ the JAX kernel in interpret mode (``impl="pallas_interpret"``, 64-row
 tiles, as its own kernel tests run it), the port through its plain
 PyTorch version.  Shapes and tolerances are those of
 ``tests/test_kernels.py:112-136``: rtol = atol = 2e-6 in fp32 (fp32
-sums in another order), 2e-2 in bf16 (one bf16 rounding of the output).
-The CUDA kernel itself is held against the plain version on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+sums in another order), 2e-2 in bf16 and fp16 (one 16-bit rounding of
+the output), plus the head dims of the port's configs (120 and 256).
+The choice between the two CUDA kernels is a pure function of dtype,
+head dims and alignment, tested here; the kernels themselves are held
+against the plain version on the card (``tests/test_torch_gpu.py``,
+``chip_smoke.py``).
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -20,7 +23,7 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.models import layers as jlayers
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import (
-    FLASH, flash_attention_fwd_cuda)
+    KERNELS, flash_attention_fwd_cuda, flash_variant)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import layers as tlayers
 
@@ -32,11 +35,15 @@ SHAPES = [(1, 128, 1, 1, 32, -1), (2, 256, 2, 3, 64, -1),
           (1, 256, 4, 1, 64, 64), (2, 192, 2, 2, 32, 16)]
 DTYPES = {"float32": (np.float32, torch.float32, 2e-6),
           "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16, 2e-2)}
+FP16 = (np.float16, torch.float16, 2e-2)
+#: the port's configs' head dims: h2o-danube-3-4b (120, window 4096)
+#: and gemma3 (256), at a ragged S
+WIDE_SHAPES = [(1, 333, 2, 2, 120, 100), (1, 200, 1, 2, 256, -1)]
 
 
 def _both(x: np.ndarray, dtype: str):
     """The same rounded values in both packages."""
-    nd, td, _ = DTYPES[dtype]
+    nd, td, _ = DTYPES.get(dtype, FP16)
     xn = x.astype(nd)
     if dtype == "bfloat16":
         return jnp.asarray(xn), torch.from_numpy(xn.view(np.int16)).view(td)
@@ -75,6 +82,72 @@ def test_plain_flash_matches_jax_pallas_kernel(B, S, K, G, D, window, dtype):
     np.testing.assert_allclose(ref.numpy(), _f32(want), rtol=tol, atol=tol)
 
 
+def _against_jax(B, S, K, G, D, window, dtype, **blocks):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(B, S, K, G, D, dtype)
+    scale = D ** -0.5
+    want = jax_flash(qj, kj, vj, window=window, causal=True, scale=scale,
+                     impl="pallas_interpret", **blocks)
+    got = flash_attention(qt, kt, vt, window=window, causal=True,
+                          scale=scale, impl="torch")
+    assert got.dtype == vt.dtype and got.shape == (B, S, K, G, D)
+    tol = DTYPES.get(dtype, FP16)[2]
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,K,G,D,window", WIDE_SHAPES)
+def test_plain_flash_matches_jax_pallas_kernel_at_wide_heads(B, S, K, G, D,
+                                                             window, dtype):
+    """The JAX kernel with its default blocks (bq 128, and bk 512, which
+    covers S): in interpret mode a ragged key block reads the
+    interpreter's NaN padding."""
+    _against_jax(B, S, K, G, D, window, dtype)
+
+
+@pytest.mark.parametrize("B,S,K,G,D,window", [SHAPES[1], SHAPES[3]])
+def test_plain_flash_matches_jax_pallas_kernel_in_fp16(B, S, K, G, D,
+                                                       window):
+    _against_jax(B, S, K, G, D, window, "float16", bq=64, bk=64)
+
+
+@pytest.mark.parametrize("dim", [32, 64, 120, 128, 256])
+def test_dispatch_sends_16_bit_inputs_to_the_tensor_cores(dim):
+    for dtype in (torch.bfloat16, torch.float16):
+        assert flash_variant(dtype, dim, dim) == "wgmma"
+        assert flash_variant(dtype, dim, 64) == "wgmma"
+    # fp32's tolerance (2e-6) is beyond TF32: the CUDA-core kernel
+    assert flash_variant(torch.float32, dim, dim) == "simt"
+
+
+@pytest.mark.parametrize("d,dv,aligned", [(15, 15, True), (120, 36, True),
+                                          (128, 128, False)])
+def test_dispatch_sends_what_tma_cannot_take_to_the_cuda_cores(d, dv,
+                                                               aligned):
+    """TMA needs 16-byte strides and addresses: head dims that are not
+    multiples of 8, or a pointer off 16 bytes, go to the CUDA-core kernel."""
+    assert flash_variant(torch.bfloat16, d, dv, aligned) == "simt"
+
+
+def test_dispatch_raises_over_256_and_on_other_dtypes():
+    for d, dv in ((264, 128), (128, 264), (512, 512)):
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="up to 256"):
+                flash_variant(dtype, d, dv)
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
+        flash_variant(torch.float64, 64, 64)
+
+
+def test_wrapper_refuses_wgmma_for_what_only_the_cuda_cores_take():
+    q, k = torch.zeros(1, 8, 1, 1, 16), torch.zeros(1, 8, 1, 16)
+    with pytest.raises(ValueError, match="wgmma kernel does not take"):
+        flash_attention_fwd_cuda(q, k, k, scale=1.0, variant="wgmma")
+    with pytest.raises(ValueError, match="unknown variant"):
+        flash_attention_fwd_cuda(q, k, k, scale=1.0, variant="tc")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_fwd_cuda(q.bfloat16(), k.bfloat16(), k.bfloat16(),
+                                 scale=1.0, variant="wgmma")
+
+
 def test_auto_on_a_cpu_tensor_is_the_plain_version():
     (_, q), (_, k), (_, v) = _qkv(2, 70, 2, 3, 16, "float32", seed=1)
     kw = dict(window=9, causal=True, scale=0.25)
@@ -97,12 +170,12 @@ def test_gqa_maps_query_head_kg_to_kv_head_k():
 
 def test_cuda_impl_on_a_cpu_tensor_raises():
     (_, q), (_, k), (_, v) = _qkv(1, 16, 1, 1, 8, "float32")
-    before = FLASH.launches
+    before = [kern.launches for kern in KERNELS]
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention(q, k, v, scale=1.0, impl="cuda")
     with pytest.raises(ValueError, match="unknown impl"):
         flash_attention(q, k, v, scale=1.0, impl="pallas")
-    assert FLASH.launches == before
+    assert [kern.launches for kern in KERNELS] == before
 
 
 @pytest.mark.parametrize("case,err,match", [

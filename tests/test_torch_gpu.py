@@ -1,6 +1,6 @@
-"""The CUDA kernels (fedavg, flash attention, int8 quantize and
-dequantize) against their plain PyTorch versions, and the fused int8
-round against the CPU, on the card.  Marked ``gpu``: they skip on a host
+"""The CUDA kernels (fedavg, the two flash-attention forwards, int8
+quantize and dequantize) against their plain PyTorch versions, and the
+fused int8 round against the CPU, on the card.  Marked ``gpu``: they skip on a host
 without a CUDA device or ``nvcc``.  Run them on the card with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
@@ -8,7 +8,8 @@ without a CUDA device or ``nvcc``.  Run them on the card with
 This file imports no JAX, so it runs where JAX is not installed.
 Tolerances are the JAX package's kernel tests': 1e-6 for one fold,
 1e-5 for the K-way burst and the reduce; rtol = atol = 2e-6 (fp32) and
-2e-2 (bf16) for flash attention; the quantize kernels bit-equal.
+2e-2 (bf16, and fp16) for flash attention; the eager fold and the
+quantize kernels bit-equal.
 """
 import pytest
 import torch
@@ -18,8 +19,8 @@ from repro_torch.kernels.fedavg import fedavg as cuda_fed
 from repro_torch.kernels.fedavg import ref as tref
 from repro_torch.kernels.build import nvcc
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.flash_attention import FLASH
-from repro_torch.kernels.flash_attention.flash_attention import LIB as FA_LIB
+from repro_torch.kernels.flash_attention.flash_attention import (
+    FLASH_SIMT, FLASH_WGMMA, LIBS as FA_LIBS)
 from repro_torch.kernels.quantize import ops as qops
 from repro_torch.kernels.quantize.quantize import (KERNELS as Q_KERNELS,
                                                    LIB as Q_LIB,
@@ -40,7 +41,8 @@ def card():
     except RuntimeError as e:      # no nvcc on this host
         pytest.skip(str(e).splitlines()[0])
     cuda_fed.build()               # a failed compile fails the test
-    FA_LIB.build()
+    for lib in FA_LIBS:
+        lib.build()
     Q_LIB.build()
     return torch.device("cuda")
 
@@ -86,10 +88,36 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,K,G,D,window", [
+@pytest.mark.parametrize("n", [1, 7, 8191, 11_199_486])
+@pytest.mark.parametrize("wire", list(WIRE))
+@pytest.mark.parametrize("acc_off,u_off", [(0, 0), (1, 3), (3, 1), (4, 0),
+                                           (2, 2)])
+def test_eager_fold_is_bit_equal_on_aligned_and_misaligned_views(
+        card, wire, n, acc_off, u_off):
+    """The 16-byte eager fold on views that start anywhere: bit-equal to
+    its plain version, in place."""
+    g = torch.Generator(device=card).manual_seed(n)
+    acc_buf = torch.randn(n + acc_off, generator=g, device=card)
+    u_buf = torch.randn(n + u_off, generator=g, device=card).to(WIRE[wire])
+    acc, u = acc_buf[acc_off:], u_buf[u_off:]
+    want = tref.eager_accumulate_ref(acc, u, 1.75)
+    ptr = acc.data_ptr()
+    before = cuda_fed.EAGER.launches
+    got = tfed.eager_accumulate(acc, u, 1.75, impl="cuda")
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr and cuda_fed.EAGER.launches == before + 1
+    assert torch.equal(acc, want)
+
+
+FLASH_SHAPES = [
     (1, 128, 1, 1, 32, -1), (2, 256, 2, 3, 64, -1), (1, 256, 4, 1, 64, 64),
-    (2, 192, 2, 2, 32, 16), (1, 333, 2, 2, 120, 100), (1, 200, 1, 2, 256, -1)])
-@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+    (2, 192, 2, 2, 32, 16), (1, 333, 2, 2, 120, 100), (1, 200, 1, 2, 256, -1),
+    (1, 1, 2, 3, 128, -1), (1, 63, 2, 3, 128, -1), (1, 2000, 2, 3, 128, -1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,K,G,D,window", FLASH_SHAPES)
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "float16"])
 def test_flash_kernel_matches_plain_version(card, B, S, K, G, D, window,
                                             wire):
     g = torch.Generator(device=card).manual_seed(S)
@@ -97,11 +125,14 @@ def test_flash_kernel_matches_plain_version(card, B, S, K, G, D, window,
                                     device=card).to(WIRE[wire])
     q, k, v = mk(B, S, K, G, D), mk(B, S, K, D), mk(B, S, K, D)
     kw = dict(window=window, causal=True, scale=D ** -0.5)
-    before = FLASH.launches
+    before = (FLASH_WGMMA.launches, FLASH_SIMT.launches)
     got = flash_attention(q, k, v, **kw)
     want = flash_attention(q, k, v, impl="torch", **kw)
     torch.cuda.synchronize()
-    assert FLASH.launches == before + 1
+    # 16-bit inputs on the tensor cores, fp32 on the CUDA cores
+    step = (0, 1) if wire == "float32" else (1, 0)
+    assert (FLASH_WGMMA.launches - before[0],
+            FLASH_SIMT.launches - before[1]) == step
     tol = 2e-6 if wire == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -126,11 +157,13 @@ def test_lm_prefill_on_the_card_matches_the_cpu(card):
     params = model.init(0, device="cpu")
     toks = torch.randint(0, 256, (2, 150), generator=torch.Generator()
                          .manual_seed(0), dtype=torch.int32)
-    before = FLASH.launches
+    before = (FLASH_SIMT.launches, FLASH_WGMMA.launches)
     got, _ = model.prefill(tree_map(lambda t: t.to(card), params),
                            {"tokens": toks.to(card)})
     torch.cuda.synchronize()
-    assert FLASH.launches == before + 2        # one per layer
+    # one per layer, fp32 on the CUDA-core kernel
+    assert (FLASH_SIMT.launches, FLASH_WGMMA.launches) == \
+        (before[0] + 2, before[1])
     want, _ = model.prefill(params, {"tokens": toks})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 

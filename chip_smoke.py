@@ -89,11 +89,43 @@ on any fault; it imports nothing of the JAX package.  Phases:
    card against the CPU within the two-part limit (at most 0.1 % of
    elements over 1e-5, none over one quantization step of its block),
    and the card with one pod's delta counted twice above it.
+13. shmproc: phase 5's workload through ``Session.open(...,
+   runtime="shmproc")``: forked numpy workers fold the mids on the host
+   (as in the JAX package), the card trains the clients and folds the
+   top.  ``df -h /dev/shm``; a cold and two warm rounds, then a busy
+   worker SIGKILLed mid-round (``WorkerCrashed``, a fresh fork after the
+   parent's CUDA work, the full goal folded); every round's params
+   against phase 5's inproc session from the same seed within
+   ``PARITY_ATOL``; worker stats (forks, cold / warm dispatch latency),
+   each round's trace breakdown; no segment left in ``/dev/shm``.
+   Phases 13 and 14 train with cuDNN's deterministic algorithms, so
+   what separates two sessions is the runtime's arithmetic alone.
+14. multi-node: two ``netd`` daemons on the card (``spawn_local_daemon``,
+   each its own CUDA context; the kernels were built in phase 2), then
+   ``Session.open(..., nodes=[a, b])`` node-top with locality placement:
+   three rounds and one with ``wire_compress=6``, params against an
+   inproc session over nodes of the same names within ``PARITY_ATOL``,
+   the controller's bytes on the wire each round (raw and compressed);
+   a driven round of six model-size updates across both daemons
+   (daemon-to-daemon ship, root on nodeA) bit-equal to the blocked
+   numpy engine; each daemon's ``stats_reply``: its device (must be
+   ``cuda``) and its own fold kernel launches (eager folds above 0 on
+   every daemon that took updates).
+15. serve: ``Session.serve()`` behind ``admission=AdmissionPolicy(
+   max_queue=2)``; a client process (the port alone) pushes three
+   full-size updates with ``push_update``: two queued, one ``busy``
+   with ``retry_after_s``; the round that follows folds the two on the
+   card (eager launches above 0).
+The ``kernels`` line gives each fedavg kernel its launches by path:
+phase 5, phase 13's controller (0: the workers fold with numpy),
+phase 14 in netd and at the controller, phase 15.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -111,9 +143,10 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.api import Session  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.resnet import RESNET18  # noqa: E402
-from repro_torch.core import (Aggregator, ClientInfo, InProcObjectStore,  # noqa: E402
-                              NodeState, RoundConfig, TorchEngine,
-                              UpdateEnvelope, fedavg_oracle)
+from repro_torch.core import (Aggregator, ClientInfo, EngineConfig,  # noqa: E402
+                              InProcObjectStore, NodeState, RoundConfig,
+                              TorchEngine, UpdateEnvelope, fedavg_oracle)
+from repro_torch.core.placement import build_fold_plan  # noqa: E402
 from repro_torch.data import (ClientShard, build_client_datasets,  # noqa: E402
                               dirichlet_partition, synthetic_femnist)
 from repro_torch.data.loader import CohortTokenLoader  # noqa: E402
@@ -138,7 +171,11 @@ from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.models.resnet import build_resnet  # noqa: E402
 from repro_torch.runtime import (ClientRuntime, FusedFLTrainer,  # noqa: E402
-                                 PartialReady)
+                                 PartialReady, UpdateArrived, WorkerCrashed)
+from repro_torch.runtime.driver import InProcRuntime, RoundDriver  # noqa: E402
+from repro_torch.runtime.netrt import (RemoteRuntime, connect,  # noqa: E402
+                                       reap_local_daemon, spawn_local_daemon)
+from repro_torch.serve import AdmissionPolicy  # noqa: E402
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,  # noqa: E402
                               tree_unflatten)
 
@@ -346,19 +383,46 @@ def phase_engine():
     return stage_s
 
 
+def fold_launches():
+    return {k.name: k.launches for k in fed.KERNELS}
+
+
+def zero_fold_launches() -> None:
+    for k in fed.KERNELS:
+        k.launches = 0
+
+
+def check_fold_launches(label, launches, names) -> None:
+    for name in names:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched by {label}")
+
+
+def resnet_fleet(cfg=RESNET18, n_images=512, classes=62, device="cuda"):
+    """Phase 5's workload: ResNet-18 (random weights from seed 0),
+    ``synthetic_femnist(512, 62)``, 8 clients (Dirichlet α 0.5), 3 nodes
+    of capacity 20.  ``clients()`` and ``nodes()`` make a fresh fleet
+    for each session."""
+    model = build_resnet(cfg)
+    params = model.init(seed=0, device=device)
+    imgs, labels = synthetic_femnist(n_images, num_classes=classes, seed=0)
+    shards = dirichlet_partition(labels, 8, alpha=0.5)
+    clients = lambda: [  # noqa: E731
+        ClientRuntime(ClientInfo(d.client_id, d.num_samples), d)
+        for d in build_client_datasets(imgs, labels, shards)]
+    nodes = lambda: {f"node{i}": NodeState(node=f"node{i}",  # noqa: E731
+                                           max_capacity=20)
+                     for i in range(3)}
+    test = {"images": imgs[:256], "labels": labels[:256]}
+    return model, params, clients, nodes, test
+
+
 def phase_round():
-    model = build_resnet(RESNET18)
-    params = model.init(seed=0, device="cuda")
+    model, params, clients, nodes, test = resnet_fleet()
+    clients = clients()
     n_params = sum(l.numel() for l in tree_leaves(params))
     if n_params != N_RESNET18:
         raise AssertionError(f"RESNET18 has {n_params} params")
-    imgs, labels = synthetic_femnist(512, num_classes=62, seed=0)
-    shards = dirichlet_partition(labels, 8, alpha=0.5)
-    clients = [ClientRuntime(ClientInfo(d.client_id, d.num_samples), d)
-               for d in build_client_datasets(imgs, labels, shards)]
-    test = {"images": imgs[:256], "labels": labels[:256]}
-    nodes = lambda: {f"node{i}": NodeState(node=f"node{i}", max_capacity=20)
-                     for i in range(3)}
     before = [l.clone() for l in tree_leaves(params)]
     lazy_counts = []
 
@@ -380,8 +444,7 @@ def phase_round():
         log("round " + json.dumps(row))
         return row
 
-    for k in fed.KERNELS:
-        k.launches = 0
+    zero_fold_launches()
     rows = []
     with Session.open(model, params, clients, nodes=nodes(),
                       round_cfg=RoundConfig(aggregation_goal=6),
@@ -397,16 +460,15 @@ def phase_round():
         rows.append(one_round(s, "lazy-2"))
         params = s.params
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in fed.KERNELS}
+    launches = fold_launches()
     log("round launches " + json.dumps(launches))
     after = tree_leaves(params)
     if not all(bool(torch.isfinite(l).all()) for l in after):
         raise AssertionError("non-finite params after the rounds")
     if not any(bool((a != b).any()) for a, b in zip(after, before)):
         raise AssertionError("params did not change")
-    for name in ("eager_accumulate", "fedavg_accumulate_k"):
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was not launched by the rounds")
+    check_fold_launches("the rounds", launches,
+                        ("eager_accumulate", "fedavg_accumulate_k"))
     return rows, launches, max(lazy_counts)
 
 
@@ -1152,6 +1214,372 @@ def phase_round_parity():
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 13-15: the multi-process and multi-node runtimes, serve mode
+# ---------------------------------------------------------------------------
+
+RT_GOAL = 6                  # phase 5's aggregation goal
+ROUND_KEYS = ("updates", "nodes_used", "cold_starts", "reused", "workers",
+              "crashes", "redispatched", "wall_s")
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms for a runtime comparison: two
+    sessions then train their clients to the same bits, and what is
+    left between them is the runtime's own arithmetic."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def synced(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def leaves_cpu(params):
+    return [l.detach().float().cpu() for l in tree_leaves(params)]
+
+
+def max_diff(a, b) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def logged_round(s, label, device):
+    """One round of phase 5's client step: its record and its trace
+    breakdown."""
+    synced(device)
+    rec = s.run_round(client_lr=CLIENT_LR, client_batch_size=32)
+    synced(device)
+    row = {"round": label, **{k: rec[k] for k in ROUND_KEYS}}
+    row.update({f"trace_{k}": v for k, v in s.trace().breakdown().items()})
+    return row
+
+
+def inproc_reference(fleet, rounds, device, round_cfg, nodes=None):
+    """Phase 5's in-process session from the same seed: the params after
+    each round, and each round's row."""
+    model, params, clients, mk_nodes, _ = fleet
+    snaps, rows = [], []
+    with Session.open(model, params, clients(), seed=0, device=device,
+                      nodes=nodes if nodes is not None else mk_nodes(),
+                      round_cfg=round_cfg) as s:
+        for r in range(rounds):
+            rows.append(logged_round(s, f"inproc-{r}", device))
+            snaps.append(leaves_cpu(s.params))
+    return snaps, rows
+
+
+def phase_shmproc(fleet, device="cuda"):
+    """Phase 5's rounds on ``runtime="shmproc"``: forked numpy workers
+    fold the mids on the host, the controller folds the top on the
+    card.  A cold round, two warm ones, then a busy worker SIGKILLed
+    after the round's third update: the crash must surface as
+    ``WorkerCrashed``, a fresh fork (after the parent's CUDA work) must
+    take the subtree's updates, and the round must fold its full goal.
+    Every round's params against phase 5's in-process session from the
+    same seed within ``PARITY_ATOL``; no segment left under the
+    runtime's ``/dev/shm`` prefix."""
+    shm_df = subprocess.run(["df", "-h", "/dev/shm"], capture_output=True,
+                            text=True, timeout=30).stdout.strip()
+    log("shm_df " + json.dumps(shm_df.splitlines()[-1]))
+    model, params, clients, nodes, _ = fleet
+    cfg = lambda: RoundConfig(aggregation_goal=RT_GOAL)  # noqa: E731
+    ref, ref_rows = inproc_reference(fleet, 4, device, cfg())
+    for row in ref_rows:
+        log("shm_ref_round " + json.dumps(row))
+    zero_fold_launches()
+    rows, diffs, crashes, arrived = [], [], [], []
+    with Session.open(model, params, clients(), runtime="shmproc",
+                      nodes=nodes(), round_cfg=cfg(), seed=0,
+                      device=device) as s:
+        shm = s.trainer._ensure_runtime()._rt     # attaches lazily
+        for r, label in enumerate(("cold", "warm-1", "warm-2")):
+            rows.append(logged_round(s, f"shmproc-{label}", device))
+            diffs.append(max_diff(leaves_cpu(s.params), ref[r]))
+            log("shm_round " + json.dumps(
+                {**rows[-1], "max_abs_diff_vs_inproc": diffs[-1]}))
+        stats = {k: shm.stats[k] for k in (
+            "forked", "cold_starts", "warm_starts", "cold_latency_s",
+            "warm_latency_s")}
+
+        def kill(ev):
+            arrived.append(ev)
+            if len(arrived) == 3:
+                busy = [w for w in shm._workers if w.state == "busy"]
+                os.kill(busy[0].proc.pid, signal.SIGKILL)
+
+        s.on(UpdateArrived, kill)
+        s.on(WorkerCrashed, crashes.append)
+        rows.append(logged_round(s, "shmproc-sigkill", device))
+        diffs.append(max_diff(leaves_cpu(s.params), ref[3]))
+        log("shm_round " + json.dumps(
+            {**rows[-1], "max_abs_diff_vs_inproc": diffs[-1]}))
+        respawn = {k: shm.stats[k] for k in ("forked", "crashes",
+                                             "cold_latency_s")}
+        prefix = shm.prefix
+    synced(device)
+    left = [n for n in os.listdir("/dev/shm") if n.startswith(prefix)]
+    row = {"rounds": len(rows), "stats": stats, "after_sigkill": respawn,
+           "worker_crashed_events": len(crashes),
+           "max_abs_diff_vs_inproc": diffs, "atol": PARITY_ATOL,
+           # how far one round moves the params: the scale the check sees
+           "round_step_max_abs": max_diff(ref[3], ref[2]),
+           "shm_left": left, "launches": fold_launches(),
+           "warm_wall_s": min(r["wall_s"] for r in rows[1:3]),
+           "inproc_warm_wall_s": min(r["wall_s"] for r in ref_rows[1:3]),
+           "warm_trace": min(rows[1:3], key=lambda r: r["wall_s"]),
+           "inproc_warm_trace": min(ref_rows[1:3],
+                                    key=lambda r: r["wall_s"])}
+    log("shmproc " + json.dumps(row))
+    if any(r["updates"] != RT_GOAL for r in rows):
+        raise AssertionError("a shmproc round fell short of its goal")
+    if not crashes or rows[-1]["crashes"] < 1 \
+            or rows[-1]["redispatched"] < 1:
+        raise AssertionError("the SIGKILL did not surface as WorkerCrashed "
+                             "and a re-dispatch")
+    if respawn["forked"] <= stats["forked"] or stats["warm_starts"] < 1:
+        raise AssertionError(f"no warm start or no respawn: {row}")
+    if not max(diffs) <= PARITY_ATOL:
+        raise AssertionError(f"shmproc vs inproc {max(diffs):.3e} > "
+                             f"{PARITY_ATOL}")
+    if left:
+        raise AssertionError(f"segments left in /dev/shm: {left}")
+    return row
+
+
+def daemon_stats(addr):
+    """A daemon's ``stats_reply``: its engines' device and its own fold
+    kernel launches, counted in its process."""
+    conn = connect(addr, timeout=30.0)
+    try:
+        conn.send("hello", {"role": "client"})
+        conn.recv_expect(("welcome",), 30.0)
+        conn.send("stats", {})
+        return conn.recv_expect(("stats_reply",), 30.0).meta
+    finally:
+        conn.close()
+
+
+def wire_totals(remote):
+    """The controller's bytes on the wire, compressed and raw."""
+    t = {"tx": 0, "tx_raw": 0, "rx": 0, "rx_raw": 0}
+    for node in remote._nodes.values():
+        c = node.conn
+        t["tx"] += c.tx_bytes
+        t["rx"] += c.rx_bytes
+        t["tx_raw"] += sum(c.tx_raw_by_kind.values())
+        t["rx_raw"] += sum(c.rx_raw_by_kind.values())
+    return t
+
+
+def two_node_round(addrs, n, device):
+    """One driven round across both daemons at the model's size: six
+    updates (numpy, seed 3), three a node, the root fold on nodeA's
+    daemon (node-top), nodeB's partial shipped daemon to daemon.  Its
+    delta against the blocked numpy engine's in-process tree, bit for
+    bit: every mid fold is one eager fold, which the kernel rounds as
+    numpy does, and the root fold is an fp32 add."""
+    rng = np.random.default_rng(3)
+    ups = [(rng.standard_normal(n) * 1e-3).astype(np.float32)
+           for _ in range(6)]
+    ws = [float(1 + i % 3) for i in range(6)]
+    assignment = {"nodeA": [0, 2, 4], "nodeB": [1, 3, 5]}
+    plan = build_fold_plan(assignment, top_node="nodeA", topology="node")
+
+    def drive(rt):
+        out = RoundDriver(rt).run_round(
+            round_id=0, assignment=assignment, goal=6, n_elems=n,
+            fold_plan=plan,
+            updates=((("nodeA", "nodeB")[i % 2], f"c{i}", u, w)
+                     for i, (u, w) in enumerate(zip(ups, ws))))
+        return out
+
+    want = drive(InProcRuntime(agg_engine="blocked")).delta
+    rt = RemoteRuntime(addrs, agg_engine=EngineConfig(name="auto",
+                                                      device=device))
+    try:
+        w0 = wire_totals(rt)
+        t0 = time.perf_counter()
+        out = drive(rt)
+        wall = time.perf_counter() - t0
+        w1 = wire_totals(rt)
+    finally:
+        rt.close()
+    row = {"wall_s": wall, "updates": out.count, "fold_tier": out.fold_tier,
+           "root_node": out.root_node, "exec_s": out.exec_s,
+           "bitexact_vs_blocked": bool(np.array_equal(out.delta, want)),
+           **{f"wire_{k}": w1[k] - w0[k] for k in w0}}
+    if out.count != 6 or not row["bitexact_vs_blocked"]:
+        raise AssertionError(f"two-node round: {row}")
+    return row
+
+
+def phase_multinode(fleet, device="cuda", daemon_device=None):
+    """Phase 5's rounds across two ``netd`` daemons on the card (each its
+    own process and CUDA context, ``runtime="inproc"``), node-top with
+    locality placement: three rounds, then one with ``wire_compress=6``,
+    the params against an in-process session over two nodes of the same
+    names and capacities within ``PARITY_ATOL``.  Locality packs the
+    8-client cohort onto one node, as in the JAX package's session
+    tests (a fixed plan keeps the clients' order, and so their updates,
+    the same in both sessions); a driven round then spreads six
+    model-size updates over both daemons.  The daemons' devices and
+    fold kernel launches come from their ``stats_reply``; bytes on the
+    wire from the controller's connections; a publish's device-to-host
+    copy is timed on the same card."""
+    model, params, clients, _, _ = fleet
+    rc = lambda topology: RoundConfig(  # noqa: E731
+        aggregation_goal=RT_GOAL, placement_policy="locality",
+        topology=topology)
+    same = {n: NodeState(node=n, max_capacity=20.0) for n in ("nodeA",
+                                                              "nodeB")}
+    ref, ref_rows = inproc_reference(fleet, 3, device, rc("controller"),
+                                     nodes=same)
+    for row in ref_rows:
+        log("net_ref_round " + json.dumps(row))
+    n = sum(l.numel() for l in tree_leaves(params))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for name in ("nodeA", "nodeB"):
+            procs.append(spawn_local_daemon(name, runtime="inproc",
+                                            timeout=300.0,
+                                            device=daemon_device))
+        spawn_s = time.perf_counter() - t0
+        addrs = [a for _, a in procs]
+        zero_fold_launches()
+        rows, diffs = [], []
+        for compress, rounds in ((0, 3), (6, 1)):
+            with Session.open(model, params, clients(), nodes=addrs,
+                              round_cfg=rc("node"), wire_compress=compress,
+                              seed=0, device=device) as s:
+                remote = s.trainer._runtime
+                for r in range(rounds):
+                    w0 = wire_totals(remote)
+                    row = logged_round(
+                        s, f"net{'-z' if compress else ''}-{r}", device)
+                    w1 = wire_totals(remote)
+                    row.update({f"wire_{k}": w1[k] - w0[k] for k in w0})
+                    row["compress"] = compress
+                    row["daemon_agg_exec_s"] = {
+                        node: sum(v[0] for k, v in per.items()
+                                  if k.endswith("/agg_exec_s"))
+                        for node, per in s.trace().telemetry.items()}
+                    row["max_abs_diff_vs_inproc"] = max_diff(
+                        leaves_cpu(s.params), ref[r])
+                    diffs.append(row["max_abs_diff_vs_inproc"])
+                    rows.append(row)
+                    log("net_round " + json.dumps(row))
+        launches = fold_launches()
+        spread = two_node_round(addrs, n, device)
+        log("net_two_node_round " + json.dumps(spread))
+        daemons = [daemon_stats(a) for a in addrs]
+    finally:
+        for p, _ in procs:
+            reap_local_daemon(p)
+    # a daemon's publish: its accumulator to the host (TorchEngine.
+    # to_numpy, as the daemon calls it), timed here on the same card
+    eng = TorchEngine(device)
+    acc = eng.begin(n)
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        eng.to_numpy(acc)
+        times.append(time.perf_counter() - t1)
+    del acc, eng
+    z = rows[-1]
+    row = {"spawn_s": spawn_s, "rounds": len(rows),
+           "max_abs_diff_vs_inproc": diffs, "atol": PARITY_ATOL,
+           "daemons": [{k: d[k] for k in ("node", "device",
+                                          "kernel_launches", "daemon")}
+                       for d in daemons],
+           "launches": launches, "two_node_round": spread,
+           "publish_copy_s": sorted(times)[2],
+           "warm_wall_s": min(r["wall_s"] for r in rows[1:3]),
+           "inproc_warm_wall_s": min(r["wall_s"] for r in ref_rows[1:3]),
+           "warm_trace": min(rows[1:3], key=lambda r: r["wall_s"]),
+           "inproc_warm_trace": min(ref_rows[1:3],
+                                    key=lambda r: r["wall_s"]),
+           "compressed_ratio": z["wire_tx"] / max(1, z["wire_tx_raw"])}
+    log("multinode " + json.dumps(row))
+    if any(r["updates"] != RT_GOAL for r in rows):
+        raise AssertionError("a multi-node round fell short of its goal")
+    if not max(diffs) <= PARITY_ATOL:
+        raise AssertionError(f"multi-node vs inproc {max(diffs):.3e} > "
+                             f"{PARITY_ATOL}")
+    return row
+
+
+#: the serve phase's external client: it imports the port alone and
+#: pushes three updates of the model's size, not retrying a busy verdict
+SERVE_CLIENT = """
+import json, sys
+import numpy as np
+from repro_torch.runtime.netrt import BusyError, push_update
+addr, n = sys.argv[1], int(sys.argv[2])
+rng = np.random.default_rng(7)
+out = []
+for i in range(3):
+    u = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+    try:
+        ack = push_update(addr, f"edge-{i}", u, weight=4.0, busy_retries=0)
+        out.append({"client": f"edge-{i}", "queued": ack["queued"]})
+    except BusyError as e:
+        out.append({"client": f"edge-{i}", "busy": True,
+                    "retry_after_s": e.retry_after_s})
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules)
+print(json.dumps(out))
+"""
+
+
+def phase_serve_ingest(fleet, device="cuda"):
+    """``Session.serve()`` behind ``admission=AdmissionPolicy(max_queue=
+    2)``: a client process pushes three full-size updates, two are
+    queued and the third comes back ``busy`` with ``retry_after_s``; the
+    round that follows folds the two in place of two clients."""
+    model, params, clients, nodes, _ = fleet
+    n = sum(l.numel() for l in tree_leaves(params))
+    zero_fold_launches()
+    arrived = []
+    with Session.open(model, params, clients(), nodes=nodes(),
+                      round_cfg=RoundConfig(aggregation_goal=RT_GOAL),
+                      seed=0, device=device,
+                      admission=AdmissionPolicy(max_queue=2,
+                                                retry_base_s=0.05)) as s:
+        addr = s.serve("127.0.0.1:0")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-c", SERVE_CLIENT, addr, str(n)],
+            capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        push_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"serve client failed:\n{r.stderr[-3000:]}")
+        pushed = json.loads(r.stdout.strip().splitlines()[-1])
+        s.on(UpdateArrived, lambda ev: arrived.append(ev.client_id))
+        row = logged_round(s, "serve", device)
+        ingress = s.metrics()["ingress"]
+        finite = all(bool(torch.isfinite(l).all())
+                     for l in tree_leaves(s.params))
+    row.update({"pushed": pushed, "client_process_s": push_s,
+                "externals_folded": sorted(c for c in arrived
+                                           if c.startswith("edge-")),
+                "ingress": ingress, "launches": fold_launches()})
+    log("serve_ingest " + json.dumps(row))
+    if sum(1 for p in pushed if p.get("busy")) < 1:
+        raise AssertionError("admission never pushed back")
+    if row["externals_folded"] != ["edge-0", "edge-1"] \
+            or row["updates"] != RT_GOAL or not finite:
+        raise AssertionError(f"the served updates were not folded: {row}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1204,6 +1632,27 @@ def main() -> int:
     fused_row, fused_dev = phase_fused_round()
     phase_round_parity()
 
+    # phases 13-15: phase 5's workload on the shmproc and multi-node
+    # runtimes and through serve mode (the kernels were built in phase
+    # 2, before any daemon starts)
+    fleet = resnet_fleet()
+    with deterministic_convs():
+        shm_row = phase_shmproc(fleet)
+        net_row = phase_multinode(fleet)
+    landed = [d for d in net_row["daemons"]
+              if d["daemon"]["updates_landed"] > 0]
+    if not landed or any(not d["device"].startswith("cuda")
+                         for d in net_row["daemons"]):
+        raise AssertionError(f"the daemons did not fold on the card: "
+                             f"{net_row['daemons']}")
+    for d in landed:
+        check_fold_launches(f"netd {d['node']}", d["kernel_launches"],
+                            ("eager_accumulate",))
+    ingest_row = phase_serve_ingest(fleet)
+    check_fold_launches("the serve round", ingest_row["launches"],
+                        ("eager_accumulate",))
+    del fleet
+
     # phase 9: summary at the main paths' shapes (f32 wire; the lazy
     # round's largest burst for fedavg_accumulate_k): the phase-3 rows
     # where they are those shapes
@@ -1226,7 +1675,18 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "K": row["K"], "N": row["N"],
-            "bound_copy_ms": row["bound_copy_ms"]})
+            "bound_copy_ms": row["bound_copy_ms"],
+            "launches_by_path": {
+                "phase 5: ResNet rounds, inproc": launches[kern.name],
+                "phase 13: shmproc, controller (workers fold with numpy)":
+                    shm_row["launches"][kern.name],
+                "phase 14: multi-node, in netd": sum(
+                    d["kernel_launches"][kern.name]
+                    for d in net_row["daemons"]),
+                "phase 14: multi-node, controller":
+                    net_row["launches"][kern.name],
+                "phase 15: serve round, inproc":
+                    ingest_row["launches"][kern.name]}})
     kernel_ms = sum(launches[o["name"]] * o["ms"] for o in out) / 1e3
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/"
     out.append({
@@ -1269,7 +1729,12 @@ def main() -> int:
         "flash_ms_est": flash_launches * flash_main["ms"],
         "fused_round_warm_s": fused_row["int8_warm_s"],
         "fused_round_quant_ms": fused_dev["quantize_ms"]
-        + fused_dev["dequantize_ms"]}))
+        + fused_dev["dequantize_ms"],
+        "shmproc_warm_wall_s": shm_row["warm_wall_s"],
+        "shmproc_fork_cold_s": shm_row["stats"]["cold_latency_s"],
+        "shmproc_fork_warm_s": shm_row["stats"]["warm_latency_s"],
+        "multinode_warm_wall_s": net_row["warm_wall_s"],
+        "multinode_compressed_ratio": net_row["compressed_ratio"]}))
     log(json.dumps({"kernels": out}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -309,17 +309,149 @@ class InProcRuntime(_WarmEngineMixin):
         self.store.close()
 
 
-class ShmProcRuntime:
-    """The multi-process runtime is not ported yet: its forked numpy
-    workers cannot share the CUDA context of the parent (ROADMAP A.4)."""
+class ShmProcRuntime(_WarmEngineMixin):
+    """Multi-process runtime: a thin event adapter over
+    :class:`repro_torch.runtime.shmrt.ShmRuntime` — mids are forked worker
+    processes, partials are sealed shm objects, crashes surface as
+    :class:`WorkerCrashed` events instead of exceptions."""
 
     name = "shmproc"
 
-    def __init__(self, **_kwargs):
-        raise NotImplementedError(
-            "runtime='shmproc' is not ported to repro_torch yet "
-            "(ROADMAP A.4: multi-process and multi-node runtimes with "
-            "the GPU engine)")
+    def __init__(self, *, metrics: Optional[MetricsMap] = None,
+                 agg_engine: Any = "auto", **rt_kwargs):
+        from repro_torch.runtime.shmrt import ShmRuntime, WorkerCrash
+
+        self.metrics = metrics if metrics is not None else MetricsMap()
+        self._rt = ShmRuntime(metrics=self.metrics, **rt_kwargs)
+        self._crash_cls = WorkerCrash
+        self.agg_engine = agg_engine
+        self._engines: Dict[str, Any] = {}   # driver-side (top) engines
+        self._task_rounds: Dict[str, int] = {}  # open task → its round
+        self._round_id = 0
+        self._closed = False
+
+    @property
+    def store(self):
+        return self._rt.store
+
+    @property
+    def store_prefix(self) -> str:
+        """The /dev/shm name prefix every segment of this runtime lives
+        under — the welcome handshake advertises it so a controller can
+        sweep a SIGKILLed daemon's leftovers on re-adoption."""
+        return self._rt.prefix
+
+    @property
+    def stats(self):
+        return self._rt.stats
+
+    # -- protocol -------------------------------------------------------
+    def spawn_aggregator(self, agg_id: str, *, goal: int, n_elems: int,
+                         round_id: int = 0, kind: str = "mid") -> None:
+        self._round_id = round_id
+        self._task_rounds[agg_id] = round_id
+        self._rt.submit_task(agg_id, goal=goal, n_elems=n_elems,
+                             round_id=round_id)
+
+    def deliver(self, agg_id: str, key: str, weight: float,
+                round_id: int = 0) -> None:
+        self._rt.dispatch(agg_id, key, weight, round_id=round_id)
+
+    def deliver_partial(self, agg_id: str, key: str, weight: float,
+                        count: int, round_id: int = 0, seq: int = 0) -> None:
+        # ring FIFO ⇒ the worker absorbs in dispatch order (plan order)
+        self._rt.dispatch_partial(agg_id, key, weight, count,
+                                  round_id=round_id)
+
+    def partial_alive(self, key: str) -> bool:
+        return self._rt.store.contains(key)
+
+    def drain(self, agg_id: str) -> None:
+        self._rt.drain(agg_id)
+
+    def poll_events(self, timeout: float = 0.0) -> List[RoundEvent]:
+        evs: List[RoundEvent] = []
+        deadline = time.perf_counter() + timeout
+        while True:
+            left = deadline - time.perf_counter()
+            try:
+                parts = self._rt.poll(timeout=max(0.0, left) if not evs
+                                      else 0.0)
+            except self._crash_cls as e:
+                evs.append(WorkerCrashed(
+                    round_id=self._round_id, agg_id=e.agg_id or "",
+                    worker=e.widx, exitcode=e.exitcode))
+                continue  # scoop any results buffered behind the crash
+            evs.extend(
+                PartialReady(round_id=p.round_id, agg_id=p.agg_id,
+                             key=p.key, weight=p.weight, count=p.count,
+                             exec_s=p.exec_s, worker=p.worker)
+                for p in parts)
+            return evs
+
+    def quiesce(self, timeout: float = 5.0,
+                round_id: Optional[int] = None) -> None:
+        if round_id is None:
+            self._task_rounds.clear()
+            self._rt.quiesce(timeout=timeout)
+            return
+        # rolling rounds: close out only this round's tasks — the
+        # other in-flight round keeps its workers busy
+        mine = {a for a, r in self._task_rounds.items() if r == round_id}
+        for a in mine:
+            self._task_rounds.pop(a, None)
+        self._rt.quiesce(timeout=timeout, agg_ids=mine)
+
+    def take_spans(self) -> List["Span"]:
+        """Worker-side spans (task pickup→publish, ring-wait) derived
+        from records already on the result rings — no extra IPC."""
+        from repro_torch.obs.trace import Span
+
+        out: List[Span] = []
+        for d in self._rt.take_spans():
+            try:
+                out.append(Span(
+                    kind=d["kind"], owner=d.get("owner", ""),
+                    node=self.name, round_id=int(d.get("round_id", 0)),
+                    t0=float(d.get("t0", 0.0)),
+                    dur_s=float(d.get("dur_s", 0.0)),
+                    worker=int(d.get("worker", -1)),
+                    n=float(d.get("n", 0.0))))
+            except (KeyError, TypeError, ValueError):
+                continue
+        return out
+
+    # -- payload plumbing ----------------------------------------------
+    def put_update(self, flat: np.ndarray) -> str:
+        return self._rt.store.put(flat)
+
+    def update_alive(self, key: str) -> bool:
+        return self._rt.store.contains(key)
+
+    def get_partial(self, key: str) -> np.ndarray:
+        return self._rt.store.get(key)
+
+    def release_partial(self, key: str) -> None:
+        self._rt.store.release(key)
+
+    def discard_partial(self, key: str) -> None:
+        # the dispatcher owns published partials (disowned by workers)
+        self._rt.store.destroy(key)
+
+    def discard_update(self, key: str) -> None:
+        self._rt.store.delete(key)  # parks the segment for recycling
+
+    def worker_count(self) -> int:
+        return len(self._rt.worker_pids())
+
+    def health(self) -> Dict[str, int]:
+        return self._rt.health()
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._rt.shutdown()
 
 
 def make_runtime(spec: Any, *, metrics: Optional[MetricsMap] = None,

@@ -110,11 +110,14 @@ _DEPRECATED_ROUND_KWARGS = {
 class FederatedTrainer:
     """LIFL rounds over real clients with the host aggregation tree.
 
-    One :class:`RoundDriver` loop drives the ``"inproc"`` runtime (the
-    multi-process one is ROADMAP A.4).  ``device`` is where the params,
-    the client training and the aggregation engines live: the card
-    unless the caller names another; with no CUDA device, asking for
-    the card raises."""
+    One :class:`RoundDriver` loop serves every runtime; pick one with
+    ``runtime="inproc"`` (single process), ``runtime="shmproc"``
+    (forked aggregator workers over shared-memory rings, folding with
+    numpy on the host) or a runtime instance (the multi-node
+    ``RemoteRuntime``).  ``device`` is where the params, the client
+    training and the trainer's own aggregation engines (the in-process
+    mids, the controller's top fold) live: the card unless the caller
+    names another; with no CUDA device, asking for the card raises."""
 
     def __init__(
         self,
@@ -444,9 +447,9 @@ class FederatedTrainer:
 
     # ------------------------------------------------------------------
     def close(self) -> None:
-        """Tear down the runtime.  Idempotent: double-close and
-        close-after-crash are no-ops; ``evaluate``/``params`` stay
-        usable after."""
+        """Tear down the runtime (graceful drain + shm unlink for
+        ``shmproc``).  Idempotent: double-close and close-after-crash
+        are no-ops; ``evaluate``/``params`` stay usable after."""
         if self._closed:
             return
         self._closed = True

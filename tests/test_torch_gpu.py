@@ -285,3 +285,133 @@ def _pod_steps(trainer, batch):
         steps = per if steps is None else [torch.maximum(a, c)
                                            for a, c in zip(steps, per)]
     return steps
+
+
+# ---------------------------------------------------------------------------
+# the multi-process and multi-node runtimes on the card
+# ---------------------------------------------------------------------------
+
+def _small_fleet(device, n_clients=6):
+    from repro_torch.configs.resnet import RESNET18
+    from repro_torch.core import ClientInfo
+    from repro_torch.data import (build_client_datasets, dirichlet_partition,
+                                  synthetic_femnist)
+    from repro_torch.models.resnet import build_resnet
+    from repro_torch.runtime import ClientRuntime
+
+    model = build_resnet(RESNET18.reduced())
+    imgs, labels = synthetic_femnist(96, num_classes=10, seed=0)
+    shards = dirichlet_partition(labels, n_clients, alpha=0.5)
+    clients = [ClientRuntime(ClientInfo(d.client_id, d.num_samples), d)
+               for d in build_client_datasets(imgs, labels, shards)]
+    return model, model.init(0, device=device), clients
+
+
+@pytest.mark.gpu
+def test_shmproc_round_after_card_training_survives_a_respawn(card):
+    """Forked numpy workers after the parent trained clients on the card:
+    a cold round, a warm one, then a busy worker SIGKILLed mid-round is
+    replaced by a fresh fork and the round still folds its full goal.
+    Against an inproc session on the card within 3e-4, both training
+    with cuDNN's deterministic algorithms (otherwise two sessions'
+    convolutions differ run to run, and three rounds of SGD carry it
+    past the limit)."""
+    import os
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got, want, prefix = _shmproc_and_inproc_rounds(card)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    assert not [n for n in os.listdir("/dev/shm") if n.startswith(prefix)]
+    assert max(float((a - b).abs().max()) for a, b in zip(got, want)) < 3e-4
+
+
+def _shmproc_and_inproc_rounds(card):
+    import os
+    import signal
+
+    from repro_torch.api import Session
+    from repro_torch.core import RoundConfig
+    from repro_torch.runtime.events import UpdateArrived, WorkerCrashed
+    from repro_torch.tree import tree_leaves
+
+    model, params, clients = _small_fleet(card)
+    cfg = lambda: RoundConfig(aggregation_goal=4)   # noqa: E731
+    with Session.open(model, params, clients, round_cfg=cfg(),
+                      seed=0) as ref:
+        for _ in range(3):
+            ref.run_round(client_lr=0.05, client_batch_size=16)
+        want = [l.detach().cpu() for l in tree_leaves(ref.params)]
+    crashes, seen = [], []
+    with Session.open(model, params, clients, runtime="shmproc",
+                      round_cfg=cfg(), seed=0) as s:
+        for _ in range(2):
+            assert s.run_round(client_lr=0.05,
+                               client_batch_size=16)["updates"] == 4.0
+        shm = s.trainer._runtime._rt
+
+        def kill(ev):
+            seen.append(ev)
+            if len(seen) == 2:
+                busy = [w for w in shm._workers if w.state == "busy"]
+                os.kill(busy[0].proc.pid, signal.SIGKILL)
+
+        s.on(UpdateArrived, kill)
+        s.on(WorkerCrashed, crashes.append)
+        rec = s.run_round(client_lr=0.05, client_batch_size=16)
+        assert rec["updates"] == 4.0 and rec["redispatched"] >= 1
+        assert crashes and shm.stats["forked"] >= 2
+        assert shm.stats["warm_starts"] >= 1
+        got = [l.detach().cpu() for l in tree_leaves(s.params)]
+        return got, want, shm.prefix
+
+
+@pytest.mark.gpu
+def test_netd_on_the_card_folds_with_the_kernels(card):
+    """A daemon started without ``--device`` folds on the card: its
+    ``stats_reply`` says ``cuda`` and counts one eager fold launch per
+    update, and the round's delta is bit-equal to the blocked numpy
+    engine's (the eager kernel rounds where numpy does)."""
+    import subprocess
+
+    import numpy as np
+
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.runtime.driver import InProcRuntime, RoundDriver
+    from repro_torch.runtime.netrt import (RemoteRuntime, connect,
+                                           reap_local_daemon,
+                                           spawn_local_daemon)
+
+    n = 1 << 20
+    rng = np.random.default_rng(0)
+    ups = [rng.standard_normal(n).astype(np.float32) for _ in range(4)]
+    ws = [1.0, 2.0, 3.5, 0.5]
+
+    def drive(rt):
+        out = RoundDriver(rt).run_round(
+            round_id=0, assignment={"nodeA": [0, 1, 2, 3]},
+            updates=(("nodeA", f"c{i}", u, w)
+                     for i, (u, w) in enumerate(zip(ups, ws))),
+            goal=4, n_elems=n)
+        rt.close()
+        return out.delta
+
+    want = drive(InProcRuntime(agg_engine="blocked"))
+    proc, addr = spawn_local_daemon("nodeA", stdout=subprocess.DEVNULL,
+                                    timeout=120.0)
+    try:
+        got = drive(RemoteRuntime([addr], agg_engine=EngineConfig(
+            name="auto", device="cuda")))
+        conn = connect(addr, timeout=10.0)
+        conn.send("hello", {"role": "client"})
+        conn.recv_expect(("welcome",), 10.0)
+        conn.send("stats", {})
+        meta = conn.recv_expect(("stats_reply",), 10.0).meta
+        conn.close()
+    finally:
+        reap_local_daemon(proc)
+    assert meta["device"].startswith("cuda")
+    assert meta["kernel_launches"]["eager_accumulate"] == 4
+    np.testing.assert_array_equal(got, want)

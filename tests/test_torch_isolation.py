@@ -33,7 +33,97 @@ VERBATIM = [
     "configs/internvl2_26b.py", "configs/kimi_k2_1t_a32b.py",
     "configs/deepseek_v2_lite_16b.py", "configs/falcon_mamba_7b.py",
     "configs/seamless_m4t_large_v2.py",
+    "runtime/shmrt/messages.py", "runtime/shmrt/ring.py",
+    "runtime/shmrt/shmengine.py", "runtime/shmrt/worker.py",
+    "runtime/shmrt/dispatcher.py", "runtime/shmrt/__init__.py",
+    "runtime/netrt/faults.py",
+    "runtime/netrt/remote.py", "runtime/netrt/__init__.py",
+    "serve/gateway.py",
 ]
+
+#: copies that must differ: each edit, by name, is a list of (JAX text,
+#: port text) replacements applied to the JAX module
+TRANSPORT_EDITS = {
+    # the port never imports ml_dtypes: a name numpy does not know is
+    # numpy's TypeError, not a lazy import
+    "no-ml_dtypes": [
+        ('    """``np.dtype`` by name, registering ml_dtypes (bfloat16, fp8)'
+         ' on\n    demand so bf16 wire updates decode in processes that '
+         'never imported\n    jax."""\n    try:\n        return '
+         'np.dtype(name)\n    except TypeError:\n        import ml_dtypes'
+         '  # noqa: F401  (registers the extended dtypes)\n        return '
+         'np.dtype(name)\n',
+         '    """``np.dtype`` by name.  The extended dtypes (bfloat16, fp8) '
+         'resolve\n    once the process has imported ``ml_dtypes``, which '
+         'registers them;\n    the port never imports it (the card\'s '
+         'machine has none), so there\n    a bf16 wire update is refused '
+         'with numpy\'s ``TypeError``."""\n    return np.dtype(name)\n'),
+    ],
+}
+
+#: the port's netd: three edits
+NETD_EDITS = {
+    # --device: the daemon's engines run on the card unless named, and
+    # a daemon on a host without one fails at start
+    "device": [
+        ("from repro_torch.core.sidecar import MetricsMap, series_flatten\n"
+         "from repro_torch.runtime.driver import make_runtime\n",
+         "from repro_torch.core.engine import EngineConfig\n"
+         "from repro_torch.core.sidecar import MetricsMap, series_flatten\n"
+         "from repro_torch.device import resolve_device\n"
+         "from repro_torch.kernels.fedavg.fedavg import KERNELS as "
+         "FOLD_KERNELS\n"
+         "from repro_torch.runtime.driver import make_runtime\n"),
+        ("                 compress: int = 0, fault_plan: Optional[FaultPlan]"
+         " = None):\n        self.node = node\n",
+         "                 compress: int = 0, fault_plan: Optional[FaultPlan]"
+         " = None,\n                 device: Optional[str] = None):\n"
+         "        self.node = node\n"
+         "        # the card unless the caller names another device: a "
+         "daemon on\n"
+         "        # a host without one fails here, at start, never folding "
+         "on the\n"
+         "        # CPU in its place\n"
+         "        self.device = resolve_device(device)\n"),
+        ("        self.rt = make_runtime(runtime, agg_engine=agg_engine,\n"
+         "                               metrics=self.metrics)\n",
+         "        self.rt = make_runtime(runtime, agg_engine=EngineConfig(\n"
+         "            name=agg_engine, device=str(self.device)), "
+         "metrics=self.metrics)\n"),
+        ("                         \"for chaos tests; see netrt/faults.py)\")\n",
+         "                         \"for chaos tests; see netrt/faults.py)\")\n"
+         "    ap.add_argument(\"--device\", default=None,\n"
+         "                    help=\"where the aggregation engines run: the "
+         "card \"\n"
+         "                         \"unless named (e.g. cpu)\")\n"),
+        ("        if args.fault_spec else None)\n",
+         "        if args.fault_spec else None, device=args.device)\n"),
+    ],
+    # spawn_local_daemon(..., device=None) passes --device on
+    "spawn": [
+        ("                       fault_spec: Optional[FaultPlan] = None):\n",
+         "                       fault_spec: Optional[FaultPlan] = None,\n"
+         "                       device: Optional[str] = None):\n"),
+        ("        argv += [\"--fault-spec\", fault_spec.to_json()]\n",
+         "        argv += [\"--fault-spec\", fault_spec.to_json()]\n"
+         "    if device is not None:\n"
+         "        argv += [\"--device\", str(device)]\n"),
+    ],
+    # stats_reply carries the engines' device and this process's fold
+    # kernel launches: the counts live in the daemon, not the caller
+    "stats": [
+        ("                \"workers\": self.rt.worker_count(),\n"
+         "            })\n",
+         "                \"workers\": self.rt.worker_count(),\n"
+         "                # this process's fold kernel launches: the only "
+         "witness\n"
+         "                # that the daemon's folds ran on the card\n"
+         "                \"device\": str(self.device),\n"
+         "                \"kernel_launches\": {k.name: k.launches\n"
+         "                                    for k in FOLD_KERNELS},\n"
+         "            })\n"),
+    ],
+}
 
 
 def test_importing_every_port_module_pulls_in_no_jax():
@@ -78,17 +168,33 @@ def test_copied_module_is_the_jax_packages_own(path):
                                                orig)
 
 
+def _rewritten(path):
+    return re.sub(r"\brepro\.", "repro_torch.",
+                  (SRC / "repro" / path).read_text())
+
+
 def test_driver_differs_from_the_jax_package_only_where_intended():
-    orig = re.sub(r"\brepro\.", "repro_torch.",
-                  (SRC / "repro/runtime/driver.py").read_text())
-    port = (PORT / "runtime/driver.py").read_text()
-    head = orig[:orig.index("class ShmProcRuntime(")].replace(
-        "self.store.put(np.asarray(agg.state.acc, dtype=np.float32))",
-        "self.store.put(agg.engine.to_numpy(agg.state.acc))")
-    tail = orig[orig.index("def make_runtime("):]
-    assert port.startswith(head) and port.endswith(tail)
-    stub = port[len(head): len(port) - len(tail)]
-    assert stub.startswith("class ShmProcRuntime:") and "A.4" in stub
+    """One edit: publish copies the accumulator to the host through the
+    engine (``np.asarray`` raises on a CUDA tensor)."""
+    old = "self.store.put(np.asarray(agg.state.acc, dtype=np.float32))"
+    orig = _rewritten("runtime/driver.py")
+    assert orig.count(old) == 1
+    assert (PORT / "runtime/driver.py").read_text() == orig.replace(
+        old, "self.store.put(agg.engine.to_numpy(agg.state.acc))")
+
+
+@pytest.mark.parametrize("path,edits", [
+    ("runtime/netrt/netd.py", NETD_EDITS),
+    ("runtime/netrt/transport.py", TRANSPORT_EDITS),
+], ids=["netd", "transport"])
+def test_copy_differs_from_the_jax_package_only_by_its_named_edits(
+        path, edits):
+    want = _rewritten(path)
+    for edit, pairs in edits.items():
+        for old, new in pairs:
+            assert want.count(old) == 1, (edit, old)
+            want = want.replace(old, new)
+    assert (PORT / path).read_text() == want
 
 
 def _tiny_session_args():
@@ -147,10 +253,6 @@ def test_params_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"runtime": "shmproc"}, "A.4"),
-    ({"nodes": ["127.0.0.1:7000"]}, "A.4"),
-    ({"wire_compress": 6}, "A.4"),
-    ({"admission": True}, "A.4"),
     ({"checkpoint_dir": "ckpt"}, "A.8"),
 ])
 def test_unported_inputs_name_their_roadmap_item(kwargs, item):
@@ -158,18 +260,6 @@ def test_unported_inputs_name_their_roadmap_item(kwargs, item):
 
     with pytest.raises(NotImplementedError, match=item):
         Session.open(*_tiny_session_args(), device="cpu", **kwargs)
-
-
-def test_serve_and_shmproc_runtime_are_refused():
-    from repro_torch.api import Session
-    from repro_torch.runtime import ShmProcRuntime
-
-    with Session.open(*_tiny_session_args(), device="cpu") as s:
-        with pytest.raises(NotImplementedError, match="A.4"):
-            s.serve()
-        assert s.metrics()["rounds"] == []
-    with pytest.raises(NotImplementedError, match="A.4"):
-        ShmProcRuntime()
 
 
 @pytest.mark.parametrize("op", ["quantize", "dequantize", "fedavg",

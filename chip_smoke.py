@@ -116,15 +116,38 @@ on any fault; it imports nothing of the JAX package.  Phases:
    full-size updates with ``push_update``: two queued, one ``busy``
    with ``retry_after_s``; the round that follows folds the two on the
    card (eager launches above 0).
+16. service: one ``AggregationService`` on the card with two jobs of
+   phase 5's full-width ResNet-18 (seed-0 params, fair-share weights
+   2:1) over phase 5's fleet.  Each job is sent its clients' real
+   deltas (phase 5's eight clients, one local epoch from the seed-0
+   params) through admission, one of them pushed over the wire as bf16
+   (raw words named ``bfloat16``; the port decodes them without
+   ``ml_dtypes``); three rolling rounds a job (``MinCohortIdleGap``),
+   fold launch counts zeroed just before and read just after.  Each
+   job's params against its recorded cohorts replayed in order through
+   a sequential ``RoundDriver`` on the card (bit-exact, or within
+   ``PARITY_ATOL``: the line says which), and the same replay with one
+   update folded twice above the limit; ``pipeline_overlap()``, each
+   job's round walls, the publishes' device-to-host copies (one a
+   publish) and their ms, ``health()`` through ``summary_line``.  Then
+   the engines' fold speedup over the naive engine (``engine_speedup``:
+   ``DataPlaneCosts.agg_engine_speedup["torch"]``).
+17. checkpoint: job a's trainer checkpoints its params through
+   ``AsyncCheckpointer`` at its last round's end (in ``build/``,
+   removed after); restored and held against the params bit for bit;
+   the submit's ms (what the round pays: the snapshot into pinned host
+   memory), the write's ms on its thread, the restore's ms and the
+   file's size.
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
-phase 14 in netd and at the controller, phase 15.
+phase 14 in netd and at the controller, phase 15, phase 16.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -141,11 +164,16 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.api import Session  # noqa: E402
+from repro_torch.checkpoint import (AsyncCheckpointer,  # noqa: E402
+                                    restore_checkpoint)
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.resnet import RESNET18  # noqa: E402
+from repro_torch.convert import (flatten_jax_layout,  # noqa: E402
+                               unflatten_jax_layout)
 from repro_torch.core import (Aggregator, ClientInfo, EngineConfig,  # noqa: E402
                               InProcObjectStore, NodeState, RoundConfig,
                               TorchEngine, UpdateEnvelope, fedavg_oracle)
+from repro_torch.core.engine import make_engine  # noqa: E402
 from repro_torch.core.placement import build_fold_plan  # noqa: E402
 from repro_torch.data import (ClientShard, build_client_datasets,  # noqa: E402
                               dirichlet_partition, synthetic_femnist)
@@ -154,7 +182,8 @@ from repro_torch.data.synthetic import TokenTaskStream  # noqa: E402
 from repro_torch.fl import compression  # noqa: E402
 from repro_torch.fl.round import (AggregationConfig,  # noqa: E402
                                   accumulate_updates)
-from repro_torch.fl.server import init_server_state  # noqa: E402
+from repro_torch.fl.server import (apply_server_opt,  # noqa: E402
+                                  init_server_state)
 from repro_torch.kernels.fedavg import fedavg as fed  # noqa: E402
 from repro_torch.kernels.fedavg import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -175,7 +204,9 @@ from repro_torch.runtime import (ClientRuntime, FusedFLTrainer,  # noqa: E402
 from repro_torch.runtime.driver import InProcRuntime, RoundDriver  # noqa: E402
 from repro_torch.runtime.netrt import (RemoteRuntime, connect,  # noqa: E402
                                        reap_local_daemon, spawn_local_daemon)
-from repro_torch.serve import AdmissionPolicy  # noqa: E402
+from repro_torch.obs import summary_line  # noqa: E402
+from repro_torch.serve import (AdmissionPolicy, AggregationService,  # noqa: E402
+                               MinCohortIdleGap)
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,  # noqa: E402
                               tree_unflatten)
 
@@ -381,6 +412,32 @@ def phase_engine():
     log(f"engine staging: {N_RESNET18 * 4 / 1e6:.1f} MB host->device in "
         f"{stage_s * 1e3:.3f} ms (median of 7)")
     return stage_s
+
+
+def engine_speedup(n=N_RESNET18, reps=15):
+    """Fold throughput of the engines against the naive one's: one
+    ResNet-18-sized fp32 update folded from the host, each fold timed
+    to its end (the torch engine's pinned staging, host-to-device copy
+    and eager kernel, synchronised); the engines take turns, ``reps``
+    folds each after a warm one, median.  The ``torch`` ratio is
+    ``DataPlaneCosts.agg_engine_speedup``'s entry
+    (``core/simulation.py``)."""
+    rng = np.random.default_rng(0)
+    u = rng.standard_normal(n).astype(np.float32)
+    names = ("naive", "blocked", "torch")
+    engs = {k: make_engine(EngineConfig(name=k, device="cuda"))
+            for k in names}
+    accs = {k: e.begin(n) for k, e in engs.items()}
+    times = {k: [] for k in names}
+    for r in range(reps + 1):
+        for k, eng in engs.items():
+            t0 = time.perf_counter()
+            accs[k] = eng.fold(accs[k], u, 1.5)
+            eng.sync(accs[k])
+            if r:                       # the first fold warms the buffers
+                times[k].append(time.perf_counter() - t0)
+    s = {k: sorted(t)[reps // 2] for k, t in times.items()}
+    return {"fold_s": s, "speedup": {k: s["naive"] / v for k, v in s.items()}}
 
 
 def fold_launches():
@@ -1580,6 +1637,214 @@ def phase_serve_ingest(fleet, device="cuda"):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: the always-on service, checkpoints
+# ---------------------------------------------------------------------------
+
+#: phase 16's jobs: fair-share weight; both share phase 5's fleet
+SVC_JOBS = {"femnist-a": 2.0, "femnist-b": 1.0}
+SVC_GOAL, SVC_ROUNDS = 4, 3
+
+
+def client_deltas(fleet):
+    """Phase 5's eight clients' local updates from the seed-0 params (one
+    epoch of SGD at the paper's lr and batch) as the wire's fp32
+    vectors, with their sample counts: what the service's jobs are
+    sent."""
+    model, params, clients, _, _ = fleet
+    rng = np.random.default_rng(0)
+    out = []
+    for c in clients():
+        delta, w = c.local_update(model, params, lr=CLIENT_LR, batch_size=32,
+                                  epochs=1, rng=rng)
+        out.append((flatten_jax_layout(delta)[0], w))
+    return out
+
+
+def push_bf16(addr, job, cid, flat, weight):
+    """One ``submit_update`` frame carrying ``flat`` rounded to bf16 (its
+    raw words under the name ``bfloat16``, as the JAX package's wire
+    names it): the port's push_update takes numpy arrays, and numpy has
+    no bf16."""
+    words = torch.from_numpy(flat).to(torch.bfloat16).view(torch.int16)
+    conn = connect(addr, timeout=30.0)
+    try:
+        conn.send("hello", {"role": "client"})
+        conn.recv_expect(("welcome",), 30.0)
+        conn.send("submit_update", {
+            "client_id": cid, "weight": weight, "submission_id": cid,
+            "job": job, "dtype": "bfloat16", "shape": [flat.size]},
+            blob=words.numpy())
+        reply = conn.recv_expect(("ack", "error", "busy"), 60.0)
+    finally:
+        conn.close()
+    if reply.kind != "ack":
+        raise AssertionError(f"bf16 push refused: {reply.meta}")
+    return words.view(torch.bfloat16).float().numpy()
+
+
+def replay_job(recs, params, updates, twice=False, device="cuda"):
+    """A job's closed rounds replayed in order on the card, each cohort
+    through a fresh sequential ``RoundDriver`` (the library path) and
+    the server step the trainer takes; ``twice`` folds the first
+    round's first update twice, in place of its second (the planted
+    fault).  -> the params after the last round."""
+    rt = InProcRuntime(agg_engine=EngineConfig(name="auto", device=device))
+    drv = RoundDriver(rt)
+    state = init_server_state("fedavg", params)
+    n = sum(l.numel() for l in tree_leaves(params))
+    try:
+        for i, rec in enumerate(recs):
+            cohort = [(n, cid, updates[cid], w) for n, cid, w in rec["cohort"]]
+            if twice and i == 0:
+                cohort[1] = cohort[0]
+            out = drv.run_round(round_id=rec["ticket"],
+                                assignment=rec["assignment"],
+                                updates=cohort, goal=len(cohort),
+                                n_elems=n, top_node=rec["top_node"])
+            params, state = apply_server_opt(
+                "fedavg", params, state,
+                unflatten_jax_layout(out.delta, params), lr=-1.0)
+    finally:
+        rt.close()
+    return params
+
+
+def phase_service(fleet, ckpt_dir, device="cuda"):
+    """One ``AggregationService`` on the card with two jobs of phase 5's
+    full-width ResNet-18 (seed-0 params, weights 2:1) over phase 5's
+    fleet: the jobs' updates are the clients' real deltas, queued
+    through admission, one of them pushed over the wire as bf16; three
+    rolling rounds a job closed by ``MinCohortIdleGap``; job a
+    checkpoints its params after its last round (phase 17).  Each job's
+    params against its cohorts replayed in order on the card, and one
+    update folded twice above ``PARITY_ATOL``."""
+    model, params, clients, nodes, _ = fleet
+    deltas = client_deltas(fleet)
+    jobs = list(SVC_JOBS)
+    svc = AggregationService(nodes(), admission=AdmissionPolicy(max_queue=64),
+                             device=device)
+    updates, published = {}, []
+    try:
+        for job, weight in SVC_JOBS.items():
+            tr = svc.add_job(job, model, params, clients(), weight=weight,
+                             round_cfg=RoundConfig(aggregation_goal=SVC_GOAL))
+            if not isinstance(svc.runtime.engine_for(f"mid:{job}@probe"),
+                              TorchEngine):
+                raise AssertionError("the service took a numpy engine")
+        # phase 17: job a's trainer checkpoints at its last round's end
+        tr_a = svc.trainer(jobs[0])
+        tr_a.ckpt, tr_a.checkpoint_every = \
+            AsyncCheckpointer(ckpt_dir), SVC_ROUNDS
+        addr = svc.serve("127.0.0.1:0")
+        t0 = time.perf_counter()
+        cid = f"{jobs[0]}-u0"
+        updates[cid] = push_bf16(addr, jobs[0], cid, deltas[0][0],
+                                 deltas[0][1])
+        push_s = time.perf_counter() - t0
+        for job in jobs:
+            for k in range(SVC_GOAL * SVC_ROUNDS):
+                cid = f"{job}-u{k}"
+                if cid in updates:
+                    continue
+                flat, w = deltas[(k + 3 * jobs.index(job)) % len(deltas)]
+                v = svc.submit(job, cid, flat, w, submission_id=cid)
+                if not v["admitted"]:
+                    raise AssertionError(f"{cid} not admitted: {v}")
+                updates[cid] = flat
+        svc.driver.on(PartialReady, published.append)
+        zero_fold_launches()
+        t0 = time.perf_counter()
+        recs = svc.run_rounds(
+            {job: SVC_ROUNDS for job in jobs},
+            policy=MinCohortIdleGap(min_cohort=SVC_GOAL, idle_gap_s=0.05))
+        synced(device)
+        wall = time.perf_counter() - t0
+        launches = fold_launches()
+        tr_a.ckpt.wait()
+        health = svc.health()
+        traces = {job: svc.trainer(job).trace() for job in jobs}
+        engines = dict(svc.runtime._engines)
+        final = {job: svc.trainer(job).params for job in jobs}
+        overlap = svc.pipeline_overlap()
+    finally:
+        svc.close()
+    mids = [e for k, e in engines.items() if k.startswith("mid")]
+    tops = [e for k, e in engines.items() if k.startswith("top")]
+    copies = sum(e.host_copies for e in mids)
+    by_job = {job: [r for r in recs if r["job"] == job] for job in jobs}
+    rows = {}
+    for job in jobs:
+        rs = by_job[job]
+        walls = [r["t_close"] - r["t_open"] for r in rs]
+        want = replay_job(rs, params, updates, device=device)
+        diff = max_diff(leaves_cpu(final[job]), leaves_cpu(want))
+        rows[job] = {"rounds": len(rs), "weight": SVC_JOBS[job],
+                     "cohorts": [len(r["cohort"]) for r in rs],
+                     "round_wall_s": walls, "warm_round_wall_s":
+                     min(walls[1:]), "max_abs_diff_vs_sequential": diff,
+                     "bitexact_vs_sequential": diff == 0.0,
+                     # the job's last round, split by its trace
+                     "last_round_trace": traces[job].breakdown()}
+    fault = max_diff(leaves_cpu(final[jobs[0]]), leaves_cpu(
+        replay_job(by_job[jobs[0]], params, updates, twice=True,
+                   device=device)))
+    row = {"jobs": rows, "wall_s": wall, "pipeline_overlap": overlap,
+           "bf16_push_s": push_s,
+           "bf16_in_cohort": any(c == f"{jobs[0]}-u0"
+                                 for r in recs for _, c, _ in r["cohort"]),
+           "launches": launches, "publishes": len(published),
+           "publish_host_copies": copies,
+           "host_copies_per_publish": copies / max(len(published), 1),
+           "publish_copy_ms": (sum(e.host_copy_s for e in mids)
+                               / max(copies, 1) * 1e3),
+           "top_fold_host_copies": sum(e.host_copies for e in tops),
+           "fault_max_abs_diff": fault, "atol": PARITY_ATOL}
+    log("service " + json.dumps(row))
+    log("service_health " + summary_line(health))
+    if any(r["rounds"] != SVC_ROUNDS or min(r["cohorts"]) != SVC_GOAL
+           for r in rows.values()) or not row["bf16_in_cohort"]:
+        raise AssertionError(f"the service rounds fell short: {row}")
+    if any(r["max_abs_diff_vs_sequential"] > PARITY_ATOL
+           for r in rows.values()):
+        raise AssertionError(f"service vs sequential above {PARITY_ATOL}")
+    if not fault > PARITY_ATOL:
+        raise AssertionError(f"the update folded twice went unseen: {fault}")
+    if row["host_copies_per_publish"] != 1.0:
+        raise AssertionError(f"{copies} host copies for "
+                             f"{len(published)} publishes")
+    if device == "cuda":
+        check_fold_launches("the service rounds", launches,
+                            ("eager_accumulate",))
+    return row, final[jobs[0]], tr_a.ckpt
+
+
+def phase_checkpoint(params, ckpt, ckpt_dir):
+    """Phase 16's job-a checkpoint (``AsyncCheckpointer`` at its last
+    round's end) restored and held against the job's params bit for
+    bit; the submit's time in the round (the snapshot to pinned host
+    memory) and the write's on its thread, for that first submit (it
+    allocates the pinned buffers) and a second one (it reuses them)."""
+    t0 = time.perf_counter()
+    got, step = restore_checkpoint(ckpt_dir, like=params)
+    synced(tree_leaves(got)[0].device)
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(params)))
+    nbytes = sum(f.stat().st_size for f in Path(ckpt_dir).glob("*.npz"))
+    first = (ckpt.submit_s, ckpt.write_s)
+    ckpt.submit(step + 1, params)
+    ckpt.wait()
+    row = {"step": step, "bitexact": same, "submit_ms": first[0] * 1e3,
+           "write_ms": first[1] * 1e3, "warm_submit_ms": ckpt.submit_s * 1e3,
+           "warm_write_ms": ckpt.write_s * 1e3, "restore_ms": restore_s * 1e3,
+           "npz_bytes": nbytes, "completed": ckpt.completed}
+    log("checkpoint " + json.dumps(row))
+    if not same or step != SVC_ROUNDS or ckpt.completed != 2:
+        raise AssertionError(f"checkpoint round trip failed: {row}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1651,7 +1916,17 @@ def main() -> int:
     ingest_row = phase_serve_ingest(fleet)
     check_fold_launches("the serve round", ingest_row["launches"],
                         ("eager_accumulate",))
-    del fleet
+
+    # phases 16-17: the always-on service over phase 5's fleet, and job
+    # a's checkpoint; the engines' fold speedup for the simulator
+    ckpt_dir = ROOT / "build" / "phase17_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    svc_row, svc_params, ckpt = phase_service(fleet, ckpt_dir)
+    ckpt_row = phase_checkpoint(svc_params, ckpt, ckpt_dir)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    speedup = engine_speedup()
+    log("engine_speedup " + json.dumps(speedup))
+    del fleet, svc_params
 
     # phase 9: summary at the main paths' shapes (f32 wire; the lazy
     # round's largest burst for fedavg_accumulate_k): the phase-3 rows
@@ -1686,7 +1961,9 @@ def main() -> int:
                 "phase 14: multi-node, controller":
                     net_row["launches"][kern.name],
                 "phase 15: serve round, inproc":
-                    ingest_row["launches"][kern.name]}})
+                    ingest_row["launches"][kern.name],
+                "phase 16: service, two jobs, inproc":
+                    svc_row["launches"][kern.name]}})
     kernel_ms = sum(launches[o["name"]] * o["ms"] for o in out) / 1e3
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/"
     out.append({
@@ -1734,7 +2011,16 @@ def main() -> int:
         "shmproc_fork_cold_s": shm_row["stats"]["cold_latency_s"],
         "shmproc_fork_warm_s": shm_row["stats"]["warm_latency_s"],
         "multinode_warm_wall_s": net_row["warm_wall_s"],
-        "multinode_compressed_ratio": net_row["compressed_ratio"]}))
+        "multinode_compressed_ratio": net_row["compressed_ratio"],
+        "service_wall_s": svc_row["wall_s"],
+        "service_warm_round_wall_s": {
+            j: r["warm_round_wall_s"] for j, r in svc_row["jobs"].items()},
+        "service_pipeline_overlap": svc_row["pipeline_overlap"],
+        "publish_host_copies_per_publish": svc_row["host_copies_per_publish"],
+        "publish_copy_ms": svc_row["publish_copy_ms"],
+        "checkpoint_submit_ms": ckpt_row["submit_ms"],
+        "checkpoint_write_ms": ckpt_row["write_ms"],
+        "torch_engine_speedup": speedup["speedup"]["torch"]}))
     log(json.dumps({"kernels": out}))
     log(card)
     log(json.dumps({"ok": True, "device": {

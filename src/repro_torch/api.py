@@ -35,8 +35,10 @@ controller's top fold on the session's device (the fedavg kernels on
 the card); ``shmproc``'s forked workers fold with numpy on the host, as
 in the JAX package; each ``netd`` folds on its own ``--device``.
 
-Not ported yet, and refused with ``NotImplementedError``: checkpoints
-(``checkpoint_dir=``, ROADMAP A.8).
+``checkpoint_dir=`` checkpoints the global params every
+``checkpoint_every`` model versions, asynchronously, in the JAX
+package's format (``repro_torch.checkpoint``): either package restores
+what the other wrote.
 """
 from __future__ import annotations
 

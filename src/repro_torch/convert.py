@@ -30,7 +30,7 @@ from repro_torch.tree import (named_leaves, tree_flatten, tree_map,
 CONV_KEYS = frozenset({"stem", "conv1", "conv2", "conv3", "proj"})
 
 
-def _conv_flags(tree: Any) -> List[bool]:
+def conv_flags(tree: Any) -> List[bool]:
     """Per leaf, in JAX order: is it a conv kernel (HWIO <-> OIHW)?"""
     flags = []
     for path, leaf in named_leaves(tree):
@@ -47,7 +47,7 @@ def _map_leaves(fn, tree: Any) -> Any:
     """``fn(leaf, conv)`` over the leaves of a ResNet tree."""
     leaves, treedef = tree_flatten(tree)
     return tree_unflatten(
-        treedef, [fn(l, c) for l, c in zip(leaves, _conv_flags(tree))])
+        treedef, [fn(l, c) for l, c in zip(leaves, conv_flags(tree))])
 
 
 def leaf_to_jax(t: torch.Tensor, conv: bool) -> torch.Tensor:
@@ -126,7 +126,7 @@ def flatten_jax_layout(tree: Any) -> Tuple[np.ndarray, Any, list]:
     """One fp32 numpy vector in the JAX package's leaf order and layout,
     gathered on the tree's device and copied to the host once."""
     leaves, treedef = tree_flatten(tree)
-    flags = _conv_flags(tree)
+    flags = conv_flags(tree)
     meta = [(tuple(leaf_to_jax(l, c).shape), l.dtype)
             for l, c in zip(leaves, flags)]
     flat = torch.cat([leaf_to_jax(l.detach(), c).reshape(-1).float()
@@ -142,7 +142,7 @@ def unflatten_jax_layout(flat: np.ndarray, like: Any) -> Any:
         leaves[0].device)
     out = []
     off = 0
-    for l, conv in zip(leaves, _conv_flags(like)):
+    for l, conv in zip(leaves, conv_flags(like)):
         n = l.numel()
         hwio = leaf_to_jax(l, conv).shape
         out.append(leaf_from_jax(dev[off: off + n].reshape(hwio), conv)

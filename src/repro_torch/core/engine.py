@@ -31,7 +31,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.bf16 import is_bf16, widen_bf16
+from repro_torch.device import host_like, resolve_device
 from repro_torch.kernels.fedavg import eager_accumulate, fedavg_accumulate_k
 
 # Cache-sized tile: 64 Ki f32 = 256 KiB — acc block + update block +
@@ -172,7 +173,9 @@ class NaiveEngine(AggregationEngine):
 
     def fold(self, acc: np.ndarray, update: np.ndarray, w: float) -> np.ndarray:
         self._count(1, update.size)
-        contrib = update.astype(np.float32) * np.float32(w)
+        u = widen_bf16(update) if is_bf16(update.dtype) \
+            else update.astype(np.float32)
+        contrib = u * np.float32(w)
         acc += contrib
         return acc
 
@@ -247,6 +250,11 @@ class BlockedNumpyEngine(AggregationEngine):
                 ub = u[off:end]
                 if ub.dtype == np.float32:
                     np.multiply(ub, w, out=s, casting="unsafe")
+                elif is_bf16(ub.dtype):
+                    # bf16 words (no numpy bf16): widened exactly into
+                    # the f32 scratch, as ml_dtypes' cast does
+                    widen_bf16(ub, out=s)
+                    np.multiply(s, w, out=s)
                 else:
                     # dtype-preserving fold: the wire update stays in
                     # its reduced dtype (bf16/f16 — half the DRAM read);
@@ -315,8 +323,9 @@ class _Staging:
 
 
 #: wire dtype -> the torch dtype of its staging slabs.  bf16 is staged
-#: as raw 16-bit words: numpy has no bf16 of its own (the ml_dtypes type
-#: a caller may hand in is recognised by name and viewed as int16).
+#: as raw 16-bit words: numpy has no bf16 of its own (the wire's
+#: ``BF16_WORDS`` and the ml_dtypes type a caller may hand in are
+#: recognised by ``is_bf16`` and viewed as int16).
 _WIRE_STORAGE = {"f32": torch.float32, "f16": torch.float16,
                  "bf16": torch.int16}
 
@@ -324,14 +333,16 @@ _WIRE_STORAGE = {"f32": torch.float32, "f16": torch.float16,
 def _wire_of(a: np.ndarray) -> str:
     if a.dtype == np.float16:
         return "f16"
-    if a.dtype.name == "bfloat16":
+    if is_bf16(a.dtype):
         return "bf16"
     return "f32"      # f32, and anything else staged (cast) through f32
 
 
 def _as_wire(a: np.ndarray, wire: str) -> np.ndarray:
-    if wire == "bf16" and a.dtype.name == "bfloat16":
-        return a.view(np.int16)
+    if is_bf16(a.dtype):
+        # the words as they are onto bf16 staging; widened exactly onto
+        # f32 staging (a mixed burst), never cast as integers
+        return a.view(np.int16) if wire == "bf16" else widen_bf16(a)
     return a
 
 
@@ -342,7 +353,15 @@ class TorchEngine(AggregationEngine):
     ``begin()`` / ``recycle()``.  Updates reach the device through one
     staging slab per wire dtype; bf16 and f16 bursts keep their dtype
     on the wire and accumulate in fp32.  On a CUDA device each fold
-    launches its kernel or raises."""
+    launches its kernel or raises.
+
+    ``to_numpy`` copies the accumulator to the host once per state of
+    it: a publish asks twice (``FedAvgState.result`` and the runtime's
+    ``_publish``) and gets the one copy, in pinned memory on the card.
+    The kernels write through the data pointer (``ctypes``), which
+    ``tensor._version`` does not see, so every writer here drops the
+    cached copy itself; a dropped copy is never written again, so an
+    array handed out stays as it was."""
 
     name = "torch"
 
@@ -352,9 +371,14 @@ class TorchEngine(AggregationEngine):
         self._staging: Dict[str, _Staging] = {}
         self._acc_buf: Optional[torch.Tensor] = None
         self._acc_out = False  # the single cached acc is handed out
+        # (accumulator, its _version, host copy) of the last to_numpy
+        self._host: Optional[Tuple[torch.Tensor, int, np.ndarray]] = None
+        self.host_copies = 0        # device-to-host copies of an accumulator
+        self.host_copy_s = 0.0      # their wall time, synchronised
 
     # -- buffers --------------------------------------------------------
     def begin(self, n: int) -> torch.Tensor:
+        self._host = None
         if self._acc_buf is not None and not self._acc_out:
             if self._acc_buf.numel() == n:
                 self._acc_buf.zero_()     # warm: reuse, no allocation
@@ -372,6 +396,7 @@ class TorchEngine(AggregationEngine):
         """Return the accumulator to the warm pool.  Only call once the
         round is over — result() has copied out (the next begin()
         re-zeros it)."""
+        self._host = None
         if acc is None or acc is self._acc_buf:
             self._acc_out = False
 
@@ -388,6 +413,7 @@ class TorchEngine(AggregationEngine):
     # -- folds ----------------------------------------------------------
     def fold(self, acc: torch.Tensor, update: np.ndarray,
              w: float) -> torch.Tensor:
+        self._host = None
         self._count(1, update.size)
         st = self._staging_for(_wire_of(update), 1, update.size)
         rows, _ = st.fill([update])
@@ -398,6 +424,7 @@ class TorchEngine(AggregationEngine):
         k = len(updates)
         if k == 1:
             return self.fold(acc, updates[0], weights[0])
+        self._host = None
         n = acc.numel()
         # a homogeneous burst keeps its wire dtype end-to-end; a mixed
         # one stages through f32 (the common denominator)
@@ -410,6 +437,7 @@ class TorchEngine(AggregationEngine):
 
     def add_partial(self, acc: torch.Tensor,
                     partial: np.ndarray) -> torch.Tensor:
+        self._host = None
         st = self._staging_for("f32", 1, acc.numel())
         rows, _ = st.fill([partial])
         return acc.add_(rows[0])
@@ -419,7 +447,26 @@ class TorchEngine(AggregationEngine):
             torch.cuda.current_stream(self.device).synchronize()
 
     def to_numpy(self, acc: torch.Tensor) -> np.ndarray:
-        return acc.cpu().numpy()
+        """The accumulator on the host: one copy per state of it, into a
+        buffer of its own (pinned on the card) that nothing here writes
+        again, so a caller may keep it."""
+        cached = self._host
+        if cached is not None and cached[0] is acc \
+                and cached[1] == acc._version:
+            return cached[2]
+        t0 = time.perf_counter()
+        host = host_like(acc)
+        host.copy_(acc)       # waits for the folds queued on the stream
+        self.host_copies += 1
+        self.host_copy_s += time.perf_counter() - t0
+        arr = host.numpy()
+        self._host = (acc, acc._version, arr)
+        return arr
+
+
+def _auto_name() -> str:
+    """The engine ``make_engine("auto")`` builds: the torch engine."""
+    return "torch"
 
 
 def make_engine(spec: Any = "auto", **kwargs) -> AggregationEngine:

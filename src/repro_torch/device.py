@@ -17,3 +17,11 @@ def resolve_device(device: Any = None) -> torch.device:
             f"device {dev}: no CUDA device is available; pass "
             "device='cpu' to run on the CPU")
     return dev
+
+
+def host_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty host tensor shaped and typed like ``t``: pinned when
+    ``t`` is on the card, so a copy from it runs at the link's rate and
+    may be queued without blocking."""
+    return torch.empty(t.shape, dtype=t.dtype,
+                       pin_memory=t.device.type == "cuda")

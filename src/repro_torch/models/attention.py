@@ -124,9 +124,11 @@ def attention(
     block_kv: int = 512,
     model_axis: str = "model",
     mesh=None,
-) -> torch.Tensor:
+    return_kv: bool = False,
+):
     """Self-attention of the block; ``memory`` (cross-attention) is
-    refused."""
+    refused.  ``return_kv``: -> (out, (k, v)), the roped keys and the
+    values it attended over, for the prefill's decode cache."""
     if memory is not None:
         _refuse_cross()
     if impl not in ("naive", "chunked", "chunked_sp", "pallas"):
@@ -150,8 +152,8 @@ def attention(
             q, k, v, positions, positions, window=window, causal=causal,
             scale=scale)
     B, S = x.shape[:2]
-    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return out @ params["wo"]
+    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ params["wo"]
+    return (out, (k, v)) if return_kv else out
 
 
 # ---------------------------------------------------------------------------

@@ -161,17 +161,21 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
                  collect_cache: bool):
     """-> (x, cache_or_None)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    x = x + attn_mod.attention(cfg, params["attn"], h, positions,
-                               window=spec.window, causal=spec.causal,
-                               impl=opts.attn_impl, block_kv=opts.block_kv,
-                               model_axis=opts.model_axis, mesh=opts.mesh)
-    h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    x = x + ffn(params["ffn"], h2)
+    a = attn_mod.attention(cfg, params["attn"], h, positions,
+                           window=spec.window, causal=spec.causal,
+                           impl=opts.attn_impl, block_kv=opts.block_kv,
+                           model_axis=opts.model_axis, mesh=opts.mesh,
+                           return_kv=collect_cache)
     cache_out = None
     if collect_cache:
+        # the roped k and v the attention just projected go to the cache
+        # (the JAX package projects them again, and XLA merges the two)
+        a, (k, v) = a
         cap = opts.prefill_cache_capacity or h.shape[1]
-        cache_out = _attn_cache_from_prefill(cfg, spec, params, h, positions,
-                                             cap)
+        cache_out = _attn_cache_from_prefill(spec, k, v, cap)
+    x = x + a
+    h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    x = x + ffn(params["ffn"], h2)
     return x, cache_out
 
 
@@ -189,10 +193,8 @@ def _ring_place(t: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
-def _attn_cache_from_prefill(cfg, spec, params, h, positions, cap):
-    """Recompute (cheap projections) the roped K/V for the decode cache."""
-    _, k, v = attn_mod._project_qkv(cfg, params["attn"], h, h, positions,
-                                    positions, rope=True)
+def _attn_cache_from_prefill(spec, k, v, cap):
+    """The decode cache from the prefill's roped K/V."""
     cap_w = cap if spec.window == GLOBAL else min(spec.window, cap)
     return {"k": _ring_place(k, cap_w), "v": _ring_place(v, cap_w)}
 

@@ -45,6 +45,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.bf16 import BF16_WORDS
+
 _HEADER = struct.Struct("!II")
 #: sanity bounds: a corrupt/foreign header must not trigger a GB recv
 MAX_JSON_BYTES = 1 << 22
@@ -170,10 +172,14 @@ class Backoff:
 
 
 def resolve_dtype(name: str) -> np.dtype:
-    """``np.dtype`` by name.  The extended dtypes (bfloat16, fp8) resolve
-    once the process has imported ``ml_dtypes``, which registers them;
-    the port never imports it (the card's machine has none), so there
-    a bf16 wire update is refused with numpy's ``TypeError``."""
+    """``np.dtype`` by name.  numpy has no bfloat16 and the port never
+    imports ``ml_dtypes``: a bf16 payload decodes to ``BF16_WORDS``,
+    its raw 16-bit words, which the port's engines and ingress
+    recognise (``repro_torch.bf16``) and no numpy arithmetic accepts.
+    Other extended dtypes (fp8) are refused with numpy's
+    ``TypeError``."""
+    if name == "bfloat16":
+        return BF16_WORDS
     return np.dtype(name)
 
 

@@ -27,6 +27,9 @@ from typing import (
 import numpy as np
 import torch
 
+from repro_torch.bf16 import as_f32
+from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                    restore_checkpoint)
 # the flat wire vector: element for element the JAX package's
 # _flatten_tree of the same params (its leaf order, HWIO)
 from repro_torch.convert import flatten_jax_layout as _flatten_tree
@@ -141,10 +144,6 @@ class FederatedTrainer:
         driver: Optional[RoundDriver] = None,
         device: Any = None,
     ):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir= is not ported to repro_torch yet "
-                "(ROADMAP A.8: distribution and persistence)")
         self.device = resolve_device(device)
         self.model = model
         self.params = tree_map(lambda t: t.to(self.device), params)
@@ -183,6 +182,8 @@ class FederatedTrainer:
             )
         self.metrics = MetricsMap()
         self.rng = np.random.default_rng(seed)
+        self.ckpt = AsyncCheckpointer(checkpoint_dir) if checkpoint_dir else None
+        self.checkpoint_every = checkpoint_every
         self.log: List[Dict[str, float]] = []
         # externally submitted updates (Session.submit_update): each one
         # takes a selected client's slot in the next round's cohort
@@ -295,8 +296,9 @@ class FederatedTrainer:
                 self.ingress["duplicates"] += 1
                 return False
         # any shape whose total size matches is accepted — flatten here
-        # so a (rows, cols) wire payload can't reach the 1-D fold loop
-        flat = np.ascontiguousarray(flat, dtype=np.float32).reshape(-1)
+        # so a (rows, cols) wire payload can't reach the 1-D fold loop;
+        # bf16 words off the wire are widened exactly
+        flat = as_f32(flat).reshape(-1)
         if flat.size != self._flat_params_size():
             self.ingress["refused"] += 1
             raise ValueError(
@@ -448,11 +450,14 @@ class FederatedTrainer:
     # ------------------------------------------------------------------
     def close(self) -> None:
         """Tear down the runtime (graceful drain + shm unlink for
-        ``shmproc``).  Idempotent: double-close and close-after-crash
-        are no-ops; ``evaluate``/``params`` stay usable after."""
+        ``shmproc``) once a checkpoint in flight is written.  Idempotent:
+        double-close and close-after-crash are no-ops;
+        ``evaluate``/``params`` stay usable after."""
         if self._closed:
             return
         self._closed = True
+        if self.ckpt is not None:
+            self.ckpt.wait()
         if self._runtime is not None:
             self._runtime.close()
             self._runtime = None
@@ -530,6 +535,8 @@ class _TrainerRound:
         # events that arrive over the wire in multi-node rounds)
         version = tr.coordinator.finish_round(job=tr.job,
                                               round_id=plan.round_id)
+        if tr.ckpt and version % tr.checkpoint_every == 0:
+            tr.ckpt.submit(version, tr.params)
         # round over: hand accumulators back so next round's aggregators
         # at the same positions start warm instead of reallocating —
         # UNLESS another round is still in flight (rolling mode): its
@@ -567,10 +574,8 @@ class FusedFLTrainer:
     the same signature."""
 
     def __init__(self, cfg, mesh, agg: AggregationConfig, *, opts=None,
-                 device: Any = None, checkpoint_dir: Optional[str] = None):
-        if checkpoint_dir is not None:
-            raise NotImplementedError("checkpoint_dir=: checkpoints are not "
-                                      "ported yet (ROADMAP A.8)")
+                 device: Any = None, checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 20):
         self.cfg = cfg
         self.mesh = mesh
         self.agg = agg
@@ -582,6 +587,9 @@ class FusedFLTrainer:
                                        opt=agg.server_opt)
         self.params = None
         self.server_state = None
+        self.ckpt = AsyncCheckpointer(checkpoint_dir) if checkpoint_dir else None
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
         self.round_id = 0
         self.history: List[Dict[str, float]] = []
 
@@ -591,8 +599,23 @@ class FusedFLTrainer:
         self.server_state = init_server_state(self.agg.server_opt,
                                               self.params)
 
+    def maybe_restore(self) -> bool:
+        """Checkpoint/restart: resume from the latest checkpoint if any
+        (into the current params' structure; without params, into a
+        fresh init's)."""
+        if not self.checkpoint_dir or latest_step(self.checkpoint_dir) is None:
+            return False
+        like = self.params if self.params is not None \
+            else self.model.init(0, device=self.device)
+        self.params, step = restore_checkpoint(self.checkpoint_dir, like,
+                                               device=self.device)
+        self.server_state = init_server_state(self.agg.server_opt,
+                                              self.params)
+        self.round_id = step
+        return True
+
     def train_round(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
-        assert self.params is not None, "call init() first"
+        assert self.params is not None, "call init() or maybe_restore() first"
         tb = {k: torch.as_tensor(np.asarray(v), device=self.device)
               for k, v in batch.items()}
         self.params, self.server_state, metrics = self.step_fn(
@@ -601,4 +624,6 @@ class FusedFLTrainer:
         rec = {k: float(v) for k, v in metrics.items()}
         rec["round"] = self.round_id
         self.history.append(rec)
+        if self.ckpt and self.round_id % self.checkpoint_every == 0:
+            self.ckpt.submit(self.round_id, self.params)
         return rec

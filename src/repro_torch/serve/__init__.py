@@ -1,10 +1,26 @@
-"""repro_torch.serve — the serving plane's ingress admission control
-(``AdmissionPolicy``, ``IngressGateway``), behind ``Session.open(...,
-admission=...)``.  The always-on multi-job service and its round
-scheduler are not ported yet (ROADMAP A.4, the next slice)."""
+"""repro_torch.serve — the continuous aggregation service (LIFL serving
+plane): ingress admission control, rolling rounds, multi-job
+fair-share over one fleet, on the card unless the caller names another
+device."""
+from repro_torch.obs.live import FleetMonitor, SLOTarget, SLOTracker
 from repro_torch.serve.gateway import AdmissionPolicy, IngressGateway
+from repro_torch.serve.scheduler import (
+    DeadlinePolicy,
+    GoalPolicy,
+    MinCohortIdleGap,
+    RoundScheduler,
+)
+from repro_torch.serve.service import AggregationService
 
 __all__ = [
     "AdmissionPolicy",
+    "AggregationService",
+    "DeadlinePolicy",
+    "FleetMonitor",
+    "GoalPolicy",
     "IngressGateway",
+    "MinCohortIdleGap",
+    "RoundScheduler",
+    "SLOTarget",
+    "SLOTracker",
 ]

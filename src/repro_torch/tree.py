@@ -68,17 +68,20 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
         treedef, [fn(*xs) for xs in zip(leaves, *(o[0] for o in others))])
 
 
-def named_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+def named_leaves(tree: Any, prefix: str = "",
+                 sep: str = ".") -> Iterator[Tuple[str, Any]]:
     """``(dotted path, leaf)`` in JAX order: ``stages.0.1.conv1`` — the
-    parameter names of an ``nn.Module`` laid out like the tree."""
+    parameter names of an ``nn.Module`` laid out like the tree.  With
+    ``sep="/"`` the paths are the JAX package's checkpoint keys (its
+    path keys joined with ``/``)."""
     if tree is None:
         return
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from named_leaves(tree[k], f"{prefix}{k}.")
+            yield from named_leaves(tree[k], f"{prefix}{k}{sep}", sep)
     elif isinstance(tree, (list, tuple)):
         for i, c in enumerate(tree):
-            yield from named_leaves(c, f"{prefix}{i}.")
+            yield from named_leaves(c, f"{prefix}{i}{sep}", sep)
     else:
         yield prefix[:-1], tree
 

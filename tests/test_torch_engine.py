@@ -171,3 +171,149 @@ def test_engine_on_missing_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchEngine()
+
+
+# ---------------------------------------------------------------------------
+# the publish's device-to-host copy: once per accumulator state
+# ---------------------------------------------------------------------------
+
+def test_to_numpy_copies_once_a_state_into_a_buffer_it_never_reuses():
+    us, ws = _updates(k=3)
+    eng = _engine()
+    acc = eng.fold(eng.begin(us[0].size), us[0], ws[0])
+    first = eng.to_numpy(acc)
+    assert eng.to_numpy(acc) is first and eng.host_copies == 1
+    kept = first.copy()
+    # every writer drops the copy: a fold, a burst, a partial, a recycle
+    acc = eng.fold(acc, us[1], ws[1])
+    second = eng.to_numpy(acc)
+    assert second is not first and eng.host_copies == 2
+    acc = eng.fold_many(acc, us, ws)
+    assert eng.to_numpy(acc) is not second
+    acc = eng.add_partial(acc, us[2])
+    third = eng.to_numpy(acc)
+    np.testing.assert_array_equal(third, acc.numpy())
+    eng.recycle(acc)
+    acc = eng.fold(eng.begin(us[0].size), us[2], 1.0)
+    assert eng.to_numpy(acc) is not third
+    # what a caller kept is never written again
+    np.testing.assert_array_equal(first, kept)
+    assert eng.host_copies == 5
+
+
+def test_to_numpy_sees_a_fold_that_moves_no_version(monkeypatch):
+    """The card's kernels write through the data pointer (``ctypes``),
+    which ``tensor._version`` does not see: the fold itself drops the
+    cached copy."""
+    import repro_torch.core.engine as engine_mod
+
+    def pointer_write(acc, u, w):
+        acc.numpy()[:] += np.float32(w) * u.numpy()   # no version bump
+        return acc
+
+    monkeypatch.setattr(engine_mod, "eager_accumulate", pointer_write)
+    us, ws = _updates(k=2)
+    eng = _engine()
+    acc = eng.fold(eng.begin(us[0].size), us[0], ws[0])
+    before, version = eng.to_numpy(acc).copy(), acc._version
+    acc = eng.fold(acc, us[1], ws[1])
+    assert acc._version == version
+    np.testing.assert_array_equal(
+        eng.to_numpy(acc), before + np.float32(ws[1]) * us[1])
+
+
+def test_a_publish_copies_the_accumulator_to_the_host_once(monkeypatch):
+    """A driven round on the in-process runtime: every publish asks for
+    the accumulator twice (``FedAvgState.result``, then
+    ``InProcRuntime._publish``) and copies it once; the values are the
+    accumulator's bits, and a published partial is not changed by the
+    next round."""
+    from repro_torch.runtime.driver import InProcRuntime, RoundDriver
+    from repro_torch.runtime.events import PartialReady
+
+    calls = []
+    orig = TorchEngine.to_numpy
+
+    def counted(self, acc):
+        calls.append((self, acc.clone()))
+        return orig(self, acc)
+
+    monkeypatch.setattr(TorchEngine, "to_numpy", counted)
+    rt = InProcRuntime(agg_engine=EngineConfig(name="auto", device="cpu"))
+    drv = RoundDriver(rt)
+    published = []
+    drv.on(PartialReady, lambda ev: published.append(
+        (ev.key, rt.store.get(ev.key).copy())))
+    us, ws = _updates(k=4, n=512)
+    assignment = {"nodeA": [0, 1, 2, 3]}
+    out = drv.run_round(round_id=0, assignment=assignment, goal=4,
+                        n_elems=512, updates=[("nodeA", f"c{i}", u, w)
+                                              for i, (u, w) in
+                                              enumerate(zip(us, ws))])
+    # the mid aggregator published once: two asks, one copy (the
+    # controller's top fold copies its own accumulator once more)
+    mid = rt._engines["mid@nodeA"]
+    mid_calls = [acc for eng, acc in calls if eng is mid]
+    assert len(published) == 1 and len(mid_calls) == 2
+    assert mid.host_copies == 1 and rt._engines["top@nodeA"].host_copies == 1
+    # the values: the accumulator's bits, as acc.cpu().numpy() gave them
+    np.testing.assert_array_equal(published[0][1], mid_calls[0].numpy())
+    np.testing.assert_allclose(out.delta, fedavg_oracle(us, ws),
+                               rtol=1e-5, atol=1e-5)
+    key, kept = published[0]
+    drv.run_round(round_id=1, assignment=assignment, goal=4, n_elems=512,
+                  updates=[("nodeA", f"d{i}", u * 3, w)
+                           for i, (u, w) in enumerate(zip(us, ws))])
+    assert mid.host_copies == 2
+    if rt.store.contains(key):
+        np.testing.assert_array_equal(rt.store.get(key), kept)
+    rt.close()
+
+
+# ---------------------------------------------------------------------------
+# bf16 words off the port's wire: never folded as integers
+# ---------------------------------------------------------------------------
+
+def _bf16_words(us):
+    from repro_torch.bf16 import BF16_WORDS
+
+    return [np.frombuffer(u.astype(ml_dtypes.bfloat16).tobytes(),
+                          dtype=BF16_WORDS) for u in us]
+
+
+@pytest.mark.parametrize("name", ["naive", "blocked", "torch"])
+@pytest.mark.parametrize("burst", [False, True])
+def test_bf16_words_fold_as_the_widened_values(name, burst):
+    """The port's wire decodes bf16 to raw words (``BF16_WORDS``): every
+    engine folds them bit-equal to the same values as fp32, in a burst
+    of their own and in one mixed with fp32 updates."""
+    us, ws = _updates(k=4, n=777)
+    words = _bf16_words(us)
+    wide = [w.view(np.uint16).astype(np.uint32) << 16 for w in words]
+    wide = [w.view(np.float32) for w in wide]
+    np.testing.assert_array_equal(wide[0], us[0].astype(ml_dtypes.bfloat16)
+                                  .astype(np.float32))
+    mixed = [words[0], wide[1], words[2], wide[3]]
+
+    def run(updates):
+        eng = make_engine(EngineConfig(name=name, device="cpu"))
+        acc = eng.begin(777)
+        if burst:
+            acc = eng.fold_many(acc, updates, ws)
+        else:
+            for u, w in zip(updates, ws):
+                acc = eng.fold(acc, u, w)
+        return np.array(eng.to_numpy(acc))
+
+    want = run(wide)
+    np.testing.assert_array_equal(run(words), want)
+    np.testing.assert_array_equal(run(mixed), want)
+
+
+def test_bf16_words_refuse_numpy_arithmetic():
+    """Code that does not know the words cannot fold them as numbers."""
+    (w,) = _bf16_words([np.ones(4, np.float32)])
+    with pytest.raises((TypeError, ValueError)):
+        w.astype(np.float32)
+    with pytest.raises(TypeError):
+        w * np.float32(2)

@@ -203,15 +203,21 @@ def test_fused_trainer_matches_jax_over_three_rounds():
     assert t._cache.misses == 1 and len(t._cache) == 1
 
 
-def test_fused_trainer_defaults_to_the_card_and_refuses_checkpoints():
+def test_fused_trainer_defaults_to_the_card_and_refuses_checkpoints(
+        tmp_path):
+    """On the card unless told; ``checkpoint_dir=`` is taken (checkpoints
+    are ported), and a directory with no checkpoint is refused as a
+    restore point: ``maybe_restore`` leaves the trainer as it was."""
     cfg = _cfg()
     agg = AggregationConfig(hierarchy="flat")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             FusedFLTrainer(cfg, make_host_mesh(), agg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        FusedFLTrainer(cfg, make_host_mesh(), agg, device="cpu",
-                       checkpoint_dir="ckpt")
+    t = FusedFLTrainer(cfg, make_host_mesh(), agg, device="cpu",
+                       checkpoint_dir=str(tmp_path / "ckpt"))
+    assert t.ckpt is not None and t.checkpoint_every == 20
+    assert not t.maybe_restore()
+    assert t.params is None and t.round_id == 0
 
 
 @pytest.mark.parametrize("shape,axes", [((1, 2, 1), ("pod", "data", "model")),

@@ -415,3 +415,102 @@ def test_netd_on_the_card_folds_with_the_kernels(card):
     assert meta["device"].startswith("cuda")
     assert meta["kernel_launches"]["eager_accumulate"] == 4
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_service_on_the_card_folds_with_the_kernels_and_copies_once(
+        card, monkeypatch):
+    """``AggregationService()`` lands on the card: a two-job round of
+    external updates folds through the fedavg kernels, each publish
+    copies its accumulator to pinned host memory once, and the deltas
+    are the CPU service's within the burst kernel's 1e-5 (a delivery
+    that finds several updates queued folds them as one burst)."""
+    import numpy as np
+
+    from repro_torch.core import (ClientInfo, NodeState, RoundConfig,
+                                  TorchEngine)
+    from repro_torch.runtime.events import PartialReady
+    from repro_torch.serve import AggregationService, GoalPolicy
+
+    class Model:
+        def loss(self, params, batch):
+            return (params["w"] ** 2).sum(), {}
+
+    n = 1 << 20
+    rng = np.random.default_rng(0)
+    ups = {f"{j}-u{k}": rng.standard_normal(n).astype(np.float32)
+           for j in ("a", "b") for k in range(4)}
+
+    def run(device):
+        nodes = {f"node{i}": NodeState(node=f"node{i}", max_capacity=20.0)
+                 for i in range(2)}
+        svc = AggregationService(nodes, **({} if device is None
+                                           else {"device": device}))
+        published = []
+        svc.driver.on(PartialReady, published.append)
+        try:
+            for j, w in (("a", 2.0), ("b", 1.0)):
+                svc.add_job(j, Model(), {"w": torch.zeros(n)},
+                            [ClientInfo(f"{j}-r{i}", 10) for i in range(8)],
+                            weight=w,
+                            round_cfg=RoundConfig(aggregation_goal=4))
+            for cid, u in ups.items():
+                svc.submit(cid[0], cid, u, 1.0 + int(cid[-1]))
+            recs = svc.run_rounds({"a": 1, "b": 1}, policy=GoalPolicy())
+            mids = [e for k, e in svc.runtime._engines.items()
+                    if k.startswith("mid")]
+            out = {r["job"]: np.asarray(r["outcome"].delta) for r in recs}
+            params = svc.trainer("a").params["w"]
+            return out, published, mids, params
+        finally:
+            svc.close()
+
+    pinned = []
+    to_numpy = TorchEngine.to_numpy
+
+    def spy(self, acc):
+        arr = to_numpy(self, acc)
+        pinned.append(torch.from_numpy(arr).is_pinned())
+        return arr
+
+    before = sum(k.launches for k in cuda_fed.KERNELS)
+    monkeypatch.setattr(TorchEngine, "to_numpy", spy)
+    got, published, mids, params = run(None)
+    monkeypatch.undo()
+    assert params.device.type == "cuda"
+    assert sum(k.launches for k in cuda_fed.KERNELS) - before >= 2
+    assert sum(e.elements_folded for e in mids) == 8 * n
+    assert sum(e.host_copies for e in mids) == len(published) == 2
+    assert pinned and all(pinned)
+    want, *_ = run("cpu")
+    for job in ("a", "b"):
+        np.testing.assert_allclose(got[job], want[job], rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """A bf16 LM tree on the card: ``AsyncCheckpointer.submit`` copies it
+    to pinned host memory before it returns, and a restore onto the card
+    or the CPU gives the same bits."""
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = ARCHS["llama3.2-3b"].reduced(dtype="bfloat16")
+    params = build_model(cfg, ModelOptions(attn_impl="naive",
+                                           remat=False)).init(0)
+    want = [t.clone() for t in tree_leaves(params)]
+    ck = AsyncCheckpointer(tmp_path)
+    ck.submit(1, params)
+    for t in tree_leaves(params):
+        t.add_(1)
+    ck.wait()
+    for device in (None, "cpu"):
+        got, step = restore_checkpoint(tmp_path, like=params, device=device)
+        assert step == 1
+        for g, w in zip(tree_leaves(got), want):
+            assert g.dtype == w.dtype
+            assert g.device.type == (device or "cuda")
+            assert torch.equal(g.cpu(), w.cpu())

@@ -3,6 +3,7 @@ its copied modules stay the JAX package's code, its entry points run
 on the card unless told otherwise, and what it has not ported yet is
 refused by name."""
 import ast
+import importlib
 import pathlib
 import re
 import subprocess
@@ -39,25 +40,121 @@ VERBATIM = [
     "runtime/netrt/faults.py",
     "runtime/netrt/remote.py", "runtime/netrt/__init__.py",
     "serve/gateway.py",
+    "serve/scheduler.py", "obs/export.py", "runtime/elastic.py",
+    "core/routing.py", "obs/__init__.py", "runtime/__init__.py",
 ]
 
 #: copies that must differ: each edit, by name, is a list of (JAX text,
 #: port text) replacements applied to the JAX module
 TRANSPORT_EDITS = {
-    # the port never imports ml_dtypes: a name numpy does not know is
-    # numpy's TypeError, not a lazy import
-    "no-ml_dtypes": [
+    # the port never imports ml_dtypes: a bf16 payload decodes to raw
+    # 16-bit words under a void dtype (repro_torch/bf16.py), which the
+    # port's engines and ingress recognise and no numpy cast accepts
+    "bf16-words": [
+        ("import numpy as np\n",
+         "import numpy as np\n\nfrom repro_torch.bf16 import BF16_WORDS\n"),
         ('    """``np.dtype`` by name, registering ml_dtypes (bfloat16, fp8)'
          ' on\n    demand so bf16 wire updates decode in processes that '
          'never imported\n    jax."""\n    try:\n        return '
          'np.dtype(name)\n    except TypeError:\n        import ml_dtypes'
          '  # noqa: F401  (registers the extended dtypes)\n        return '
          'np.dtype(name)\n',
-         '    """``np.dtype`` by name.  The extended dtypes (bfloat16, fp8) '
-         'resolve\n    once the process has imported ``ml_dtypes``, which '
-         'registers them;\n    the port never imports it (the card\'s '
-         'machine has none), so there\n    a bf16 wire update is refused '
-         'with numpy\'s ``TypeError``."""\n    return np.dtype(name)\n'),
+         '    """``np.dtype`` by name.  numpy has no bfloat16 and the port '
+         'never\n    imports ``ml_dtypes``: a bf16 payload decodes to '
+         '``BF16_WORDS``,\n    its raw 16-bit words, which the port\'s '
+         'engines and ingress\n    recognise (``repro_torch.bf16``) and no '
+         'numpy arithmetic accepts.\n    Other extended dtypes (fp8) are '
+         'refused with numpy\'s\n    ``TypeError``."""\n    if name == '
+         '"bfloat16":\n        return BF16_WORDS\n    return '
+         'np.dtype(name)\n'),
+    ],
+}
+
+#: the port's AggregationService: two edits
+SERVICE_EDITS = {
+    # device=: the shared runtime's engines and every job's trainer run
+    # on the card unless named, and a host without one fails at start
+    "device": [
+        ("from repro_torch.core import Coordinator, MetricsMap, NodeState, "
+         "Selector\n",
+         "from repro_torch.core import Coordinator, MetricsMap, NodeState, "
+         "Selector\n"
+         "from repro_torch.core.engine import EngineConfig\n"
+         "from repro_torch.device import resolve_device\n"),
+        ("                 max_open_rounds: int = 2, seed: int = 0):\n"
+         "        self.metrics = MetricsMap()\n",
+         "                 max_open_rounds: int = 2, seed: int = 0,\n"
+         "                 device: Optional[str] = None):\n"
+         "        # the card unless the caller names another device: the "
+         "shared\n"
+         "        # runtime's engines and every job's params and clients "
+         "live\n"
+         "        # there; a host without one fails here, never on the CPU\n"
+         "        self.device = resolve_device(device)\n"
+         "        self.metrics = MetricsMap()\n"),
+        ("        self.runtime = make_runtime(runtime, metrics=self.metrics,\n"
+         "                                    agg_engine=agg_engine)\n",
+         "        self.runtime = make_runtime(\n"
+         "            runtime, metrics=self.metrics,\n"
+         "            agg_engine=EngineConfig(name=agg_engine, "
+         "device=str(self.device)))\n"),
+        ("            coordinator=self.coordinator, driver=self.driver,\n"
+         "        )\n",
+         "            coordinator=self.coordinator, driver=self.driver,\n"
+         "            device=self.device,\n"
+         "        )\n"),
+    ],
+    # submit(): bf16 words off the wire (the port's BF16_WORDS) are
+    # widened exactly, as ml_dtypes' cast widens them in the JAX package
+    "bf16": [
+        ("from repro_torch.core import Coordinator, MetricsMap, NodeState, "
+         "Selector\n",
+         "from repro_torch.bf16 import as_f32\n"
+         "from repro_torch.core import Coordinator, MetricsMap, NodeState, "
+         "Selector\n"),
+        ("        flat = np.ascontiguousarray(update, dtype=np.float32)"
+         ".reshape(-1)\n",
+         "        flat = as_f32(update).reshape(-1)   # bf16 words widened "
+         "exactly\n"),
+    ],
+}
+
+#: the port's cluster simulator: two edits
+SIMULATION_EDITS = {
+    # "auto" resolves through the port's engine module: _auto_name() is
+    # "torch", the engine make_engine("auto") builds
+    "auto-name": [
+        ('        if engine == "auto":\n'
+         "            from repro_torch.core.engine import _auto_name\n",
+         '        if engine == "auto":\n'
+         '            # the engine make_engine("auto") builds: "torch" in the '
+         "port\n"
+         "            from repro_torch.core.engine import _auto_name\n"),
+    ],
+    # the torch engine's fold speedup over the naive engine, measured on
+    # the card (chip_smoke.py's engine_speedup)
+    "torch speedup": [
+        ("    # re-calibrates from a live measurement before simulating.\n"
+         "    agg_engine_speedup: Dict[str, float] = field(default_factory="
+         "lambda: {\n"
+         '        "naive": 1.0, "blocked": 4.0, "jnp": 2.0, "pallas": 8.0,\n'
+         "    })\n",
+         '    # re-calibrates from a live measurement before simulating.  '
+         '"torch"\n'
+         "    # (TorchEngine: pinned staging + the fedavg kernels) over "
+         '"naive", one\n'
+         "    # 44.8 MB ResNet-18 update folded from the host: chip_smoke.py's"
+         "\n"
+         "    # engine_speedup on an NVIDIA H100 80GB HBM3 (700 W power limit),"
+         " the\n"
+         "    # median of three runs in one call (4.09-5.59; the host's numpy"
+         "\n"
+         "    # folds set the spread).\n"
+         "    agg_engine_speedup: Dict[str, float] = field(default_factory="
+         "lambda: {\n"
+         '        "naive": 1.0, "blocked": 4.0, "jnp": 2.0, "pallas": 8.0,\n'
+         '        "torch": 5.12,\n'
+         "    })\n"),
     ],
 }
 
@@ -186,7 +283,9 @@ def test_driver_differs_from_the_jax_package_only_where_intended():
 @pytest.mark.parametrize("path,edits", [
     ("runtime/netrt/netd.py", NETD_EDITS),
     ("runtime/netrt/transport.py", TRANSPORT_EDITS),
-], ids=["netd", "transport"])
+    ("serve/service.py", SERVICE_EDITS),
+    ("core/simulation.py", SIMULATION_EDITS),
+], ids=["netd", "transport", "service", "simulation"])
 def test_copy_differs_from_the_jax_package_only_by_its_named_edits(
         path, edits):
     want = _rewritten(path)
@@ -217,7 +316,7 @@ def test_session_defaults_to_the_card():
 @pytest.mark.parametrize("entry", ["init", "params_from_jax", "lm_init",
                                    "lm_init_decode", "lm_params_from_jax",
                                    "fused_trainer", "lm_init_train",
-                                   "tree_from_jax"])
+                                   "tree_from_jax", "aggregation_service"])
 def test_params_default_to_the_card(entry):
     from repro_torch.configs import ARCHS
     from repro_torch.configs.resnet import RESNET18
@@ -228,6 +327,7 @@ def test_params_default_to_the_card(entry):
     from repro_torch.models import ModelOptions, build_model
     from repro_torch.models.resnet import build_resnet
     from repro_torch.runtime import FusedFLTrainer
+    from repro_torch.serve import AggregationService
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -247,19 +347,34 @@ def test_params_default_to_the_card(entry):
             "lm_init_train": lambda: build_model(
                 ARCHS["llama3.2-3b"].reduced(),
                 ModelOptions(attn_impl="chunked", remat=True)).init(0),
-            "tree_from_jax": lambda: tree_from_jax({"step": np.int32(0)})}
+            "tree_from_jax": lambda: tree_from_jax({"step": np.int32(0)}),
+            "aggregation_service": lambda: AggregationService()}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make[entry]()
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"checkpoint_dir": "ckpt"}, "A.8"),
-])
-def test_unported_inputs_name_their_roadmap_item(kwargs, item):
-    from repro_torch.api import Session
+#: the JAX package's exported names the port has under another name
+EXPORT_RENAMES = {"JaxEngine": "TorchEngine"}
 
-    with pytest.raises(NotImplementedError, match=item):
-        Session.open(*_tiny_session_args(), device="cpu", **kwargs)
+
+@pytest.mark.parametrize("package", ["core", "serve", "obs", "runtime",
+                                     "checkpoint"])
+def test_package_exports_the_jax_packages_names(package):
+    """Each ported package exports what the JAX package's does (its
+    ``__all__``, or its public names where it has none), the engine
+    renamed."""
+    def exported(mod):
+        names = getattr(mod, "__all__", None)
+        if names is None:
+            names = [n for n, v in vars(mod).items()
+                     if not n.startswith("_")
+                     and not getattr(v, "__name__", "").startswith(
+                         mod.__name__ + ".")]
+        return {EXPORT_RENAMES.get(n, n) for n in names}
+
+    want = exported(importlib.import_module(f"repro.{package}"))
+    got = exported(importlib.import_module(f"repro_torch.{package}"))
+    assert got == want
 
 
 @pytest.mark.parametrize("op", ["quantize", "dequantize", "fedavg",

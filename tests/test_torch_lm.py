@@ -112,6 +112,29 @@ def test_prefill_logits_and_ring_caches_match_jax(arch, dtype):
 
 
 @pytest.mark.parametrize("arch,dtype", CASES)
+def test_prefill_projects_qkv_once_a_layer(arch, dtype, monkeypatch):
+    """The decode cache takes the roped k and v the attention projected:
+    ``_project_qkv`` runs once a layer in a prefill (the JAX package
+    projects twice and XLA merges the two), and the caches stay the JAX
+    package's."""
+    calls = []
+    orig = tattn._project_qkv
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tattn, "_project_qkv", counted)
+    model, params, toks = _port(arch, dtype)
+    _, _, _, _, want_caches, _ = _jax_run(arch, dtype)
+    _, caches = model.prefill(params, {"tokens": torch.from_numpy(toks)})
+    assert len(calls) == ARCHS[arch].reduced().num_layers
+    for got, want in zip(caches, want_caches):
+        for key in want:
+            _close(got[key], want[key], TOL[dtype][1])
+
+
+@pytest.mark.parametrize("arch,dtype", CASES)
 def test_decode_steps_and_caches_match_jax(arch, dtype):
     model, params, toks = _port(arch, dtype)
     _, _, steps, fed, _, want_caches = _jax_run(arch, dtype)

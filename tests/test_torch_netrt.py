@@ -285,6 +285,52 @@ def test_port_daemons_match_the_jax_packages(daemons, jax_daemons,
         rt.close()
 
 
+def _words_on_the_wire(rt):
+    """A bf16 update crosses the wire as its raw words under the name
+    ``bfloat16``: neither package's sender hands an ``ml_dtypes`` array
+    to a socket, so the controller's sends are given the words."""
+    send = rt._send
+
+    def _send(node, kind, meta, blob=b""):
+        if isinstance(blob, np.ndarray) and blob.dtype.name == "bfloat16":
+            blob = blob.view(np.uint16)
+        return send(node, kind, meta, blob=blob)
+
+    rt._send = _send
+    return rt
+
+
+def test_port_daemons_fold_bf16_updates_like_the_jax_packages(
+        daemons, jax_daemons):
+    """bf16 updates, the same bytes on the wire, through two of the JAX
+    package's daemons (``ml_dtypes``, blocked numpy) and two of the
+    port's (no ``ml_dtypes``: raw words staged as bf16 on
+    ``TorchEngine``): bit-equal deltas, equal to the widened values'
+    fp32 round."""
+    import ml_dtypes
+
+    _, addrs = daemons
+    n = 4096
+    f32, ws = _mk_updates(6, n, seed=5)
+    ups = [u.astype(ml_dtypes.bfloat16) for u in f32]
+    jrt = _words_on_the_wire(jnetrt.RemoteRuntime(jax_daemons))
+    try:
+        want = _drive(jdriver.RoundDriver(jrt), ups, ws, n, 0,
+                      j_build_fold_plan(ASSIGNMENT, top_node="nodeA",
+                                        topology="node")).delta
+    finally:
+        jrt.close()
+    rt = _words_on_the_wire(RemoteRuntime(addrs, agg_engine=CPU_ENGINE))
+    try:
+        got = _drive(RoundDriver(rt), ups, ws, n, 0, _plan("node")).delta
+    finally:
+        rt.close()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(
+        got, fedavg_oracle([u.astype(np.float32) for u in ups], ws),
+        rtol=1e-5, atol=1e-6)
+
+
 def test_stats_reply_names_the_device_and_the_fold_launches(daemons):
     _, addrs = daemons
     conn = connect(addrs[0], timeout=5.0)

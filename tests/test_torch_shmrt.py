@@ -400,3 +400,36 @@ def test_session_shmproc_round_reports_its_workers(_no_onednn):
         assert stats["forked"] >= 1 and stats["cold_starts"] >= 1
         prefix = s.trainer._runtime.store_prefix
     assert _leftover(prefix) == []
+
+
+def test_shmproc_workers_fold_bf16_words_as_the_widened_values():
+    """A bf16 update as the port's wire decodes it (raw words,
+    ``BF16_WORDS``) in the shared-memory store: the forked numpy
+    workers recognise it through the object header (``"|V2"``) and fold
+    it bit-equal to the same values as fp32, never as integers."""
+    import ml_dtypes
+    from repro_torch.bf16 import BF16_WORDS
+
+    rng = np.random.default_rng(11)
+    n = 3000
+    f32 = [rng.normal(size=n).astype(np.float32) for _ in range(4)]
+    words = [np.frombuffer(u.astype(ml_dtypes.bfloat16).tobytes(),
+                           dtype=BF16_WORDS) for u in f32]
+    wide = [u.astype(ml_dtypes.bfloat16).astype(np.float32) for u in f32]
+    ws = [1.0, 2.0, 3.0, 0.5]
+    assignment = {"n0": [0, 1, 2, 3]}
+
+    def run(rt, ups):
+        try:
+            return RoundDriver(rt).run_round(
+                round_id=0, assignment=assignment, goal=4, n_elems=n,
+                updates=[("n0", f"c{i}", u, w)
+                         for i, (u, w) in enumerate(zip(ups, ws))]).delta
+        finally:
+            rt.close()
+
+    rt = ShmProcRuntime(agg_engine="blocked")
+    got = run(rt, words)
+    assert _leftover(rt.store_prefix) == []
+    want = run(ShmProcRuntime(agg_engine="blocked"), wide)
+    np.testing.assert_array_equal(got, want)

@@ -9,11 +9,12 @@ on any fault; it imports nothing of the JAX package.  Phases:
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; TF32 is switched off for convolutions and matmuls, and
    so is the reduced-precision reduction of bf16 matmuls.
-2. build: compiles ``csrc/fedavg.cu``, both flash sources
-   (``csrc/flash_attention_sm90.cu``, ``csrc/flash_attention.cu``) and
-   ``csrc/quantize.cu`` with ``nvcc``, one process each, at once, into
-   ``build/repro_torch/`` and times it; measures the card's
-   device-to-device copy bandwidth, the practical ceiling of a fold.
+2. build: compiles ``csrc/fedavg.cu``, the three flash sources
+   (``csrc/flash_attention_sm90.cu``, ``csrc/flash_attention_tf32x3.cu``,
+   ``csrc/flash_attention.cu``) and ``csrc/quantize.cu`` with ``nvcc``,
+   one process each, at once, into ``build/repro_torch/`` and times it;
+   measures the card's device-to-device copy bandwidth, the practical
+   ceiling of a fold.
 3. kernels: each fedavg CUDA kernel against its plain PyTorch version
    at the ResNet-18 update size (N = 11,199,486), one JSON line per
    case: errors, kernel / plain / library times (CUDA events around a
@@ -32,16 +33,22 @@ on any fault; it imports nothing of the JAX package.  Phases:
    plain versions) must give the same params within ``PARITY_ATOL``,
    and a run with one update planted twice must not.
 6. flash: the flash-attention kernels against their plain version
-   (``attention_ref``): 16-bit inputs go to the wgmma kernel, fp32 to
-   the CUDA-core one, and each call must move that kernel's count.  At
-   the serve path's shape (B = 4, S = 2000, 24 query heads over 8 KV
-   heads, D = 128) in bf16, fp16 and fp32; at gemma3's (K 4, G 2, D 256,
-   window 1024) and h2o-danube-3-4b's (K 8,
-   G 4, D 120, window 4096) in bf16; and at the four shapes of the JAX
+   (``attention_ref``): ``flash_variant`` sends 16-bit inputs to the
+   wgmma kernel, fp32 to the 3xTF32 one and what neither takes to the
+   CUDA-core one, and each call must move that kernel's count.  At the
+   serve path's shape (B = 4, S = 2000, 24 query heads over 8 KV heads,
+   D = 128) in bf16, fp16 and fp32; at gemma3's (K 4, G 2, D 256,
+   window 1024) and h2o-danube-3-4b's (K 8, G 4, D 120, window 4096) in
+   bf16, and h2o-danube-3-4b's again on pointers off 16 bytes (the
+   CUDA-core kernel's inputs); and at the four shapes of the JAX
    package's kernel test in all three.  One ``flash_case`` JSON line
    each, with the library call (``scaled_dot_product_attention``) as the
-   yardstick, the bound at the bf16 (or fp32) peak and, for 16-bit
-   inputs, the CUDA-core kernel on the same inputs (``previous_ms``).
+   yardstick, the bound at the bf16 peak or, in fp32, at three TF32
+   products (``bound_simt_ms``: fp32 FMA on the CUDA cores) and, for the
+   tensor-core kernels, the CUDA-core kernel on the same inputs timed in
+   turns (``previous_ms``).  At the path shape in fp32 the plain version
+   once more with TF32 matmuls (one TF32 pass) must land outside the
+   tolerance that the kernel meets.
 7. serve: full-width llama3.2-3b (random bf16 weights from seed 0)
    through ``repro_torch.models``: prefill of 4 prompts of 2000 tokens
    with ``attn_impl="pallas"``, then 32 greedy decode steps on the ring
@@ -55,20 +62,33 @@ on any fault; it imports nothing of the JAX package.  Phases:
    attention kernel, matmuls and the rest, and give the device's idle
    share; a decode step is set beside the time to read every weight
    once at the measured copy rate.
+7b. fp32 prefill: the same llama3.2-3b in fp32 (12.8 GB of random
+   weights from seed 0, once phase 7's bf16 model is freed), the same
+   4 prompts of 2000 tokens with ``attn_impl="pallas"``.  The flash
+   counts are zeroed just before a cold prefill and must read 28 for
+   the 3xTF32 kernel and 0 for the other two just after; the logits
+   must be finite.  A warm prefill, its device split under
+   ``torch.profiler`` (the kernel's share), then the same prefill with
+   the CUDA-core kernel named in the kernel's place (``flash_calls``,
+   ``variant="simt"``: 28 launches of it), timed, and its logits against
+   the kernel's.
 8. lm checks (reduced llama3.2-3b, fp32): on the card, prefill of S
    tokens against prefill of S - 1 plus ``decode_step`` (the JAX
    package's 2e-3); then the serve loop on the card (the kernel) against
    the CPU (the plain version): greedy tokens equal and logits within
    ``LM_PARITY_ATOL``, and the same loop with the KV heads rolled by one
    before the kernel in the first layer must land above it.  In fp32
-   the loop runs the CUDA-core flash kernel: its counts are zeroed just
-   before the card's loop and read just after.
+   the loop runs the 3xTF32 flash kernel (head dim 16): the counts are
+   zeroed just before the card's loop and read just after.
 9. summary, printed last: a ``{"kernels": [...]}`` line (phase 3's
    rows at the main path's shapes, the burst timed again at the lazy
    round's K, the wgmma flash row on the serve path's captured
-   first-layer inputs, the CUDA-core flash row at the serve shape in
-   fp32 with its launches from phase 8, and phase 10's quantize rows at
-   the fused round's largest leaf), the device line, and the last line
+   first-layer inputs, the 3xTF32 flash row at the serve shape in fp32
+   with its launches by path (phases 7, 7b, 8, 11), the CUDA-core flash
+   row on the 16-bit inputs TMA cannot take (phase 6's h2o-danube-3-4b
+   shape off 16 bytes) with its launches in phase 7b, and phase 10's
+   quantize rows at the fused round's largest leaf), the device line,
+   and the last line
    ``{"ok": true, "device": {...}}``.
 10. quant: the int8 quantize and dequantize CUDA kernels against their
    plain versions, bit for bit (q, scales, dequantized fp32 and bf16)
@@ -145,6 +165,7 @@ phase 14 in netd and at the controller, phase 15, phase 16.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -188,8 +209,9 @@ from repro_torch.kernels.fedavg import fedavg as fed  # noqa: E402
 from repro_torch.kernels.fedavg import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    FLASH_SIMT, FLASH_WGMMA, GLOBAL, KERNELS as FA_KERNELS, LIBS as FA_LIBS,
-    flash_attention_fwd_cuda)
+    BY_VARIANT as FA_BY_VARIANT, FLASH_SIMT, FLASH_TF32X3, FLASH_WGMMA,
+    GLOBAL, KERNELS as FA_KERNELS, LIBS as FA_LIBS, flash_attention_fwd_cuda,
+    flash_variant)
 from repro_torch.kernels.quantize import ops as q_ops  # noqa: E402
 from repro_torch.kernels.quantize import ref as q_ref  # noqa: E402
 # the package's name ``quantize`` is the op; the wrappers' module by path
@@ -213,6 +235,7 @@ from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,  # noqa: E402
 N_RESNET18 = 11_199_486      # fp32 parameters of RESNET18
 NOMINAL_BPS = 3.35e12        # H100 SXM HBM3, NVIDIA's data sheet
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 494.7e12        # H100 SXM TF32 dense tensor cores
 BF16_FLOPS = 989e12          # H100 SXM bf16 dense tensor cores
 RTOL = {"eager_accumulate": 1e-6, "fedavg_accumulate_k": 1e-5,
         "fedavg_reduce": 1e-5}
@@ -270,6 +293,12 @@ def copy_bandwidth() -> float:
 def errors(got, want):
     d = (got.double() - want.double()).abs()
     return float(d.max()), float((d / want.double().abs().clamp_min(1e-30)).max())
+
+
+def limit_share(got, want, rtol) -> float:
+    """max |got - ref| / (rtol + rtol·|ref|): above 1 is outside."""
+    return float(((got.double() - want.double()).abs()
+                  / (rtol + rtol * want.double().abs())).max())
 
 
 def check_close(name, got, want, rtol) -> None:
@@ -611,10 +640,12 @@ def visible_pairs(S: int, window: int) -> int:
     return w * (w + 1) // 2 + (S - w) * w
 
 
-def flash_row(label, q, k, v, window):
-    """The flash kernel that takes (q, k, v) against its plain version,
-    timed beside the library's attention on the same inputs and, for
-    16-bit inputs, beside the CUDA-core kernel (``previous_ms``)."""
+def flash_row(label, q, k, v, window, planted=False):
+    """The flash kernel that ``flash_variant`` picks for (q, k, v) against
+    its plain version, timed beside the library's attention on the same
+    inputs and, for the tensor-core kernels, beside the CUDA-core kernel
+    (``previous_ms``).  ``planted``: the plain version once more with
+    TF32 matmuls (one TF32 pass) must land outside the tolerance."""
     B, S, K, G, D = q.shape
     Dv = v.shape[-1]
     H = K * G
@@ -623,7 +654,8 @@ def flash_row(label, q, k, v, window):
     run = lambda: fa_ops.flash_attention(q, k, v, impl="cuda", **kw)
     plain = lambda: fa_ops.flash_attention(q, k, v, impl="torch", **kw)
     simt = lambda: flash_attention_fwd_cuda(q, k, v, variant="simt", **kw)
-    kern = FLASH_SIMT if q.dtype == torch.float32 else FLASH_WGMMA
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    kern = FA_BY_VARIANT[flash_variant(q.dtype, D, Dv, aligned)]
     n0 = [kn.launches for kn in FA_KERNELS]
     got, want = run(), plain()
     torch.cuda.synchronize()
@@ -636,6 +668,21 @@ def flash_row(label, q, k, v, window):
     tol = FLASH_TOL[q.dtype]
     check_close(f"flash[{label}]", got.float(), want.float(), tol)
     max_abs, max_rel = errors(got.float(), want.float())
+    share = limit_share(got.float(), want.float(), tol)
+    one_pass = None
+    if planted:
+        matmul = torch.backends.cuda.matmul
+        matmul.allow_tf32 = True
+        try:
+            one = plain().float()
+        finally:
+            matmul.allow_tf32 = False
+        one_pass = {"max_abs_err": errors(one, want.float())[0],
+                    "limit_share": limit_share(one, want.float(), tol)}
+        if not one_pass["limit_share"] > 1.0:
+            raise AssertionError(f"flash[{label}]: one TF32 pass lands "
+                                 f"inside rtol=atol={tol}: {one_pass}")
+        del one
     del got, want
     qh = q.reshape(B, S, H, D).transpose(1, 2).contiguous()
     kh = k.transpose(1, 2).contiguous()
@@ -651,26 +698,45 @@ def flash_row(label, q, k, v, window):
     esz = q.element_size()
     nbytes = esz * (q.numel() + k.numel() + v.numel() + B * S * H * Dv)
     flops = 2 * B * H * visible_pairs(S, window) * (D + Dv)
-    peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    b_bytes = nbytes / NOMINAL_BPS
+    if q.dtype == torch.float32:
+        # fp32-accurate work: three TF32 products on the tensor cores
+        b_ops = 3 * flops / TF32_FLOPS
+    else:
+        b_ops = flops / BF16_FLOPS
     reps = 25 if S <= 256 else 10
-    # the two designs in turns (wgmma, CUDA cores, CUDA cores, wgmma)
+    # the two designs in turns (tensor cores, CUDA cores, CUDA cores,
+    # tensor cores)
     ms = time_ms(run, reps=reps)
     prev_ms = None
-    if kern is FLASH_WGMMA:
+    if kern is not FLASH_SIMT:
         prev_ms = min(time_ms(simt, reps=reps), time_ms(simt, reps=reps))
-    return {
+    row = {
         "case": label, "dtype": str(q.dtype).replace("torch.", ""),
-        "kernel": kern.name,
+        "kernel": kern.name, "aligned": aligned,
         "shape": [B, S, K, G, D, Dv], "window": window, "tol": tol,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
+        "limit_share": share,
         "ms": min(ms, time_ms(run, reps=reps)), "previous_ms": prev_ms,
         "plain_ms": time_ms(plain, reps=reps),
         "library_ms": time_ms(library, reps=reps),
         "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / NOMINAL_BPS, flops / peak) * 1e3,
-        "bound_by": ("bytes" if nbytes / NOMINAL_BPS >= flops / peak
-                     else "operations"),
+        "bound_ms": max(b_bytes, b_ops) * 1e3,
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
     }
+    if q.dtype == torch.float32:
+        row["bound_simt_ms"] = max(b_bytes, flops / FP32_FLOPS) * 1e3
+    if one_pass is not None:
+        row["one_tf32_pass"] = one_pass
+    return row
+
+
+def randn_on_card(shape, dtype, g, offset=0):
+    """Normal values in ``dtype``, starting ``offset`` elements into their
+    buffer (1 puts a 16-bit tensor off 16 bytes)."""
+    n = int(np.prod(shape))
+    buf = torch.randn(n + offset, generator=g, device="cuda").to(dtype)
+    return buf[offset:].view(shape)
 
 
 def phase_flash():
@@ -679,20 +745,23 @@ def phase_flash():
     kernel-test shapes.  -> the rows by (case, dtype)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     every = (torch.bfloat16, torch.float16, torch.float32)
-    cases = [("path", 4, 2000, 8, 3, 128, GLOBAL, every),
-             ("gemma3", 4, 2000, 4, 2, 256, 1024, (torch.bfloat16,)),
-             ("h2o_danube3", 4, 2000, 8, 4, 120, 4096, (torch.bfloat16,)),
-             ("test0", 1, 128, 1, 1, 32, GLOBAL, every),
-             ("test1", 2, 256, 2, 3, 64, GLOBAL, every),
-             ("test2", 1, 256, 4, 1, 64, 64, every),
-             ("test3", 2, 192, 2, 2, 32, 16, every)]
+    bf16 = (torch.bfloat16,)
+    # (label, B, S, K, G, D, window, dtypes, element offset)
+    cases = [("path", 4, 2000, 8, 3, 128, GLOBAL, every, 0),
+             ("gemma3", 4, 2000, 4, 2, 256, 1024, bf16, 0),
+             ("h2o_danube3", 4, 2000, 8, 4, 120, 4096, bf16, 0),
+             ("h2o_danube3_unaligned", 4, 2000, 8, 4, 120, 4096, bf16, 1),
+             ("test0", 1, 128, 1, 1, 32, GLOBAL, every, 0),
+             ("test1", 2, 256, 2, 3, 64, GLOBAL, every, 0),
+             ("test2", 1, 256, 4, 1, 64, 64, every, 0),
+             ("test3", 2, 192, 2, 2, 32, 16, every, 0)]
     rows = {}
-    for label, B, S, K, G, D, window, dtypes in cases:
+    for label, B, S, K, G, D, window, dtypes, off in cases:
         for dtype in dtypes:
-            mk = lambda *shape: torch.randn(shape, generator=g,
-                                            device="cuda").to(dtype)
+            mk = lambda *shape: randn_on_card(shape, dtype, g, off)
             row = flash_row(label, mk(B, S, K, G, D), mk(B, S, K, D),
-                            mk(B, S, K, D), window)
+                            mk(B, S, K, D), window,
+                            planted=(label, dtype) == ("path", torch.float32))
             log("flash_case " + json.dumps(row))
             rows[label, row["dtype"]] = row
     return rows
@@ -806,13 +875,13 @@ def phase_serve(copy_bps):
             kern.launches = 0
         logits, toks, prefill_s, lat, caches = serve(
             model, params, prompts, LM_STEPS, torch.device("cuda"))
-        launches = FLASH_WGMMA.launches
-        simt_launches = FLASH_SIMT.launches
+        launches = {kern.name: kern.launches for kern in FA_KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.num_layers or simt_launches != 0:
-        raise AssertionError(f"the bf16 prefill launched the wgmma kernel "
-                             f"{launches} times (not {cfg.num_layers}) and "
-                             f"the CUDA-core one {simt_launches} (not 0)")
+    want = {kern.name: cfg.num_layers * int(kern is FLASH_WGMMA)
+            for kern in FA_KERNELS}
+    if launches != want:
+        raise AssertionError(f"the bf16 prefill launched {launches}, not "
+                             f"{want}")
     if tuple(logits.shape) != (LM_BATCH, 1 + LM_STEPS, cfg.vocab_size):
         raise AssertionError(f"logits {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
@@ -830,8 +899,7 @@ def phase_serve(copy_bps):
         "decode_p50_ms": float(np.percentile(lat_ms, 50)),
         "decode_p99_ms": float(np.percentile(lat_ms, 99)),
         "decode_tok_s": LM_BATCH * LM_STEPS / sum(lat),
-        "peak_mem_gb": peak / 1e9, "flash_wgmma_launches": launches,
-        "flash_simt_launches": simt_launches,
+        "peak_mem_gb": peak / 1e9, "flash_launches": launches,
         "tokens_0": toks[0, :8].tolist()}
     log("serve " + json.dumps(row))
     log("serve_prefill_device " + json.dumps(device_time_split(
@@ -848,7 +916,82 @@ def phase_serve(copy_bps):
         log("flash_case " + json.dumps(r))
     del params, logits, caches
     torch.cuda.empty_cache()
-    return row, launches, rows[0]
+    return row, launches[FLASH_WGMMA.name], rows[0]
+
+
+def phase_fp32_prefill():
+    """Phase 7's llama3.2-3b at full width and depth in fp32 (random
+    weights from seed 0): prefill of 4 prompts of 2000 tokens through the
+    3xTF32 flash kernel, cold and warm, its device split, then the same
+    prefill with the CUDA-core kernel named in its place."""
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], dtype="float32")
+    model = build_model(cfg, ModelOptions(
+        attn_impl="pallas", remat=False,
+        prefill_cache_capacity=LM_PROMPT + 8))
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": torch.from_numpy(TokenTaskStream(
+        cfg.vocab_size, LM_PROMPT, seed=1).batch(LM_BATCH)["tokens"]).cuda()}
+
+    def prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t0) * 1e3
+
+    def counted(fn):
+        for kern in FA_KERNELS:
+            kern.launches = 0
+        out = fn()
+        return out, {kern.name: kern.launches for kern in FA_KERNELS}
+
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cold_ms), launches = counted(prefill)
+    peak = torch.cuda.max_memory_allocated()
+    want = {kern.name: cfg.num_layers * int(kern is FLASH_TF32X3)
+            for kern in FA_KERNELS}
+    if launches != want:
+        raise AssertionError(f"the fp32 prefill launched {launches}, not "
+                             f"{want}")
+    if (logits.dtype != torch.float32 or logits.shape[0] != LM_BATCH
+            or logits.shape[-1] != cfg.vocab_size):
+        raise AssertionError(f"logits {logits.dtype} {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite fp32 logits")
+    _, warm_ms = prefill()
+    split = device_time_split(lambda: model.prefill(params, batch))
+    split["flash_share"] = split["flash_ms"] / split["busy_ms"]
+
+    def cuda_cores(i, orig, q, k, v, *args, **kw):
+        return flash_attention_fwd_cuda(
+            q, k, v, scale=kw["scale"], window=kw["window"],
+            causal=kw["causal"], variant="simt")
+
+    with flash_calls(cuda_cores):
+        (simt_logits, simt_ms), simt_launches = counted(prefill)
+    want = {kern.name: cfg.num_layers * int(kern is FLASH_SIMT)
+            for kern in FA_KERNELS}
+    if simt_launches != want:
+        raise AssertionError(f"the fp32 prefill with the CUDA-core kernel "
+                             f"named launched {simt_launches}, not {want}")
+    row = {
+        "arch": LM_ARCH, "params": cfg.param_count(), "dtype": cfg.dtype,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "init_s": init_s,
+        "prefill_cold_ms": cold_ms, "prefill_ms": warm_ms,
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / (warm_ms / 1e3),
+        "prefill_cuda_core_ms": simt_ms, "peak_mem_gb": peak / 1e9,
+        "launches": launches, "launches_cuda_core": simt_launches,
+        "logits_max_abs": float(logits.abs().max()),
+        "cuda_core_vs_tf32x3_logits_max_abs": float(
+            (simt_logits - logits).abs().max())}
+    log("fp32_prefill " + json.dumps(row))
+    log("fp32_prefill_device " + json.dumps(split))
+    del params, logits, simt_logits, model
+    torch.cuda.empty_cache()
+    return row, split
 
 
 def small_lm(steps):
@@ -884,11 +1027,13 @@ def phase_lm_checks():
         kern.launches = 0
     card_logits, card_toks, *_ = serve(model, p_card, prompts.to(cuda),
                                        steps, cuda)
-    simt_launches = FLASH_SIMT.launches
-    if simt_launches != model.cfg.num_layers or FLASH_WGMMA.launches:
-        raise AssertionError(f"the fp32 serve loop launched the CUDA-core "
-                             f"flash kernel {simt_launches} times and the "
-                             f"wgmma one {FLASH_WGMMA.launches}")
+    tf32_launches = FLASH_TF32X3.launches
+    if (tf32_launches != model.cfg.num_layers or FLASH_WGMMA.launches
+            or FLASH_SIMT.launches):
+        raise AssertionError(f"the fp32 serve loop launched the 3xTF32 "
+                             f"flash kernel {tf32_launches} times, the "
+                             f"wgmma one {FLASH_WGMMA.launches} and the "
+                             f"CUDA-core one {FLASH_SIMT.launches}")
 
     def roll_first(i, orig, q, k, v, *args, **kw):
         if i == 0:      # the KV heads of the first layer, one head off
@@ -913,7 +1058,7 @@ def phase_lm_checks():
         "planted_card_vs_planted_cpu": both_planted,
         "planted_same_tokens": bool((bad_toks.cpu() == bad_cpu_toks).all()),
         "atol": LM_PARITY_ATOL, "same_greedy_tokens": same_tokens,
-        "steps": steps, "flash_simt_launches": simt_launches}))
+        "steps": steps, "flash_tf32x3_launches": tf32_launches}))
     if not both_planted <= LM_PARITY_ATOL:
         raise AssertionError(f"with the planted fault, card vs CPU logits: "
                              f"{both_planted:.3e} > {LM_PARITY_ATOL}")
@@ -925,7 +1070,7 @@ def phase_lm_checks():
     if not planted > LM_PARITY_ATOL:
         raise AssertionError(f"rolled KV heads moved the logits by "
                              f"{planted:.3e}, inside {LM_PARITY_ATOL}")
-    return simt_launches
+    return tf32_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1890,7 +2035,8 @@ def main() -> int:
     # phases 6-8: the flash kernels, the serve path, the LM checks
     flash_rows = phase_flash()
     serve_row, flash_launches, flash_main = phase_serve(copy_bps)
-    simt_launches = phase_lm_checks()
+    fp32_row, fp32_dev = phase_fp32_prefill()
+    tf32_lm_launches = phase_lm_checks()
 
     # phases 10-12: the quantize kernels, the fused round, its parity
     _, quant_rows = phase_quant()
@@ -1974,16 +2120,43 @@ def main() -> int:
         **{k: flash_main[k] for k in (
             "max_abs_err", "ms", "previous_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape", "dtype")}})
-    simt_row = flash_rows["path", "float32"]
+    def flash_paths(kern):
+        """A flash kernel's launches on each path that runs attention."""
+        return {"phase 7: bf16 prefill":
+                    serve_row["flash_launches"][kern.name],
+                "phase 7b: fp32 prefill": fp32_row["launches"][kern.name],
+                "phase 7b: fp32 prefill, the CUDA-core kernel named":
+                    fp32_row["launches_cuda_core"][kern.name],
+                "phase 8: fp32 serve loop":
+                    tf32_lm_launches * int(kern is FLASH_TF32X3),
+                "phase 11: fused round":
+                    fused_row["launches_int8"][kern.name]}
+
+    tf32_row = flash_rows["path", "float32"]
+    out.append({
+        "name": FLASH_TF32X3.name, "route": "cuda",
+        "source": flash_src + "flash_attention_tf32x3.cu",
+        "replaces": FLASH_TF32X3.replaces,
+        "launches": fp32_row["launches"][FLASH_TF32X3.name],
+        "launches_path": "phase 7b: the fp32 prefill",
+        "launches_by_path": flash_paths(FLASH_TF32X3),
+        **{k: tf32_row[k] for k in (
+            "max_abs_err", "limit_share", "ms", "previous_ms", "plain_ms",
+            "bound_ms", "bound_simt_ms", "bound_by", "library_ms", "shape",
+            "dtype")}})
+    simt_row = flash_rows["h2o_danube3_unaligned", "bfloat16"]
     out.append({
         "name": FLASH_SIMT.name, "route": "cuda",
         "source": flash_src + "flash_attention.cu",
-        "replaces": FLASH_SIMT.replaces, "launches": simt_launches,
-        "launches_path": "phase 8: the fp32 serve loop on the card",
-        "launches_fused_round": fused_row["launches_int8"][FLASH_SIMT.name],
+        "replaces": FLASH_SIMT.replaces,
+        "launches": fp32_row["launches_cuda_core"][FLASH_SIMT.name],
+        "launches_path": "phase 7b: the fp32 prefill with this kernel "
+                         "named in the 3xTF32 kernel's place",
+        "launches_by_path": flash_paths(FLASH_SIMT),
         **{k: simt_row[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape", "dtype")}})
+            "library_ms", "shape", "dtype", "aligned")}})
+
     for kern in Q_KERNELS:
         r = quant_rows[kern.name]
         out.append({
@@ -2004,6 +2177,9 @@ def main() -> int:
         "serve_prefill_ms": serve_row["prefill_ms"],
         "serve_decode_p50_ms": serve_row["decode_p50_ms"],
         "flash_ms_est": flash_launches * flash_main["ms"],
+        "fp32_prefill_ms": fp32_row["prefill_ms"],
+        "fp32_prefill_cuda_core_ms": fp32_row["prefill_cuda_core_ms"],
+        "fp32_prefill_flash_share": fp32_dev["flash_share"],
         "fused_round_warm_s": fused_row["int8_warm_s"],
         "fused_round_quant_ms": fused_dev["quantize_ms"]
         + fused_dev["dequantize_ms"],

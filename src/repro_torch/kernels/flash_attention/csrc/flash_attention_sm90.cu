@@ -3,9 +3,9 @@
 //
 // Replaces _flash_fwd_kernel behind flash_attention_fwd_pallas
 // (src/repro/kernels/flash_attention/flash_attention.py:89), for 16-bit
-// inputs; fp32 inputs keep the CUDA-core kernel (flash_attention.cu), whose
-// IEEE fp32 arithmetic meets the fp32 tolerance of 2e-6 that TF32 tensor
-// cores (about three digits) cannot.  For query head h = kh*G + g of batch b:
+// inputs; fp32 inputs go to flash_attention_tf32x3.cu (mma.sync in 3xTF32,
+// which meets the fp32 tolerance of 2e-6 that one TF32 pass, about three
+// digits, cannot).  For query head h = kh*G + g of batch b:
 //
 //   s[i, j]   = (q[b, i, h, :] . k[b, j, kh, :]) * scale
 //   visible   = j < S  &&  (!causal || i >= j)  &&  (window < 0 || i - j < window)

@@ -34,7 +34,7 @@ def test_no_extra_flags_keep_the_name_a_library_had_without_them():
 
 def test_the_tensor_core_flash_source_links_libcuda():
     """cuTensorMapEncodeTiled is libcuda's: the sm90 source is built
-    with -lcuda, and both flash sources sit beside their wrapper."""
+    with -lcuda, and every flash source sits beside its wrapper."""
     assert "-lcuda" in LIB_SM90.extra_flags
     for lib in FA_LIBS:
         assert isinstance(lib.src, Path) and lib.src.is_file()

@@ -8,7 +8,7 @@ PyTorch version.  Shapes and tolerances are those of
 ``tests/test_kernels.py:112-136``: rtol = atol = 2e-6 in fp32 (fp32
 sums in another order), 2e-2 in bf16 and fp16 (one 16-bit rounding of
 the output), plus the head dims of the port's configs (120 and 256).
-The choice between the two CUDA kernels is a pure function of dtype,
+The choice among the three CUDA kernels is a pure function of dtype,
 head dims and alignment, tested here; the kernels themselves are held
 against the plain version on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).
@@ -115,8 +115,9 @@ def test_dispatch_sends_16_bit_inputs_to_the_tensor_cores(dim):
     for dtype in (torch.bfloat16, torch.float16):
         assert flash_variant(dtype, dim, dim) == "wgmma"
         assert flash_variant(dtype, dim, 64) == "wgmma"
-    # fp32's tolerance (2e-6) is beyond TF32: the CUDA-core kernel
-    assert flash_variant(torch.float32, dim, dim) == "simt"
+    # fp32 on the tensor cores too, in 3xTF32 (one TF32 pass misses
+    # fp32's tolerance of 2e-6; tests/test_torch_flash_tf32x3.py)
+    assert flash_variant(torch.float32, dim, dim) == "tf32x3"
 
 
 @pytest.mark.parametrize("d,dv,aligned", [(15, 15, True), (120, 36, True),

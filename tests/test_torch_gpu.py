@@ -1,4 +1,4 @@
-"""The CUDA kernels (fedavg, the two flash-attention forwards, int8
+"""The CUDA kernels (fedavg, the three flash-attention forwards, int8
 quantize and dequantize) against their plain PyTorch versions, and the
 fused int8 round against the CPU, on the card.  Marked ``gpu``: they skip on a host
 without a CUDA device or ``nvcc``.  Run them on the card with
@@ -20,7 +20,8 @@ from repro_torch.kernels.fedavg import ref as tref
 from repro_torch.kernels.build import nvcc
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import (
-    FLASH_SIMT, FLASH_WGMMA, LIBS as FA_LIBS)
+    FLASH_SIMT, FLASH_TF32X3, FLASH_WGMMA, KERNELS as FA_KERNELS,
+    LIBS as FA_LIBS, flash_attention_fwd_cuda)
 from repro_torch.kernels.quantize import ops as qops
 from repro_torch.kernels.quantize.quantize import (KERNELS as Q_KERNELS,
                                                    LIB as Q_LIB,
@@ -115,26 +116,47 @@ FLASH_SHAPES = [
     (1, 1, 2, 3, 128, -1), (1, 63, 2, 3, 128, -1), (1, 2000, 2, 3, 128, -1)]
 
 
+def _flash_inputs(card, wire, B, S, K, G, D):
+    g = torch.Generator(device=card).manual_seed(S)
+    mk = lambda *shape: torch.randn(shape, generator=g,
+                                    device=card).to(WIRE[wire])
+    return mk(B, S, K, G, D), mk(B, S, K, D), mk(B, S, K, D)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,K,G,D,window", FLASH_SHAPES)
 @pytest.mark.parametrize("wire", ["float32", "bfloat16", "float16"])
 def test_flash_kernel_matches_plain_version(card, B, S, K, G, D, window,
                                             wire):
-    g = torch.Generator(device=card).manual_seed(S)
-    mk = lambda *shape: torch.randn(shape, generator=g,
-                                    device=card).to(WIRE[wire])
-    q, k, v = mk(B, S, K, G, D), mk(B, S, K, D), mk(B, S, K, D)
+    q, k, v = _flash_inputs(card, wire, B, S, K, G, D)
     kw = dict(window=window, causal=True, scale=D ** -0.5)
-    before = (FLASH_WGMMA.launches, FLASH_SIMT.launches)
+    before = [kern.launches for kern in FA_KERNELS]
     got = flash_attention(q, k, v, **kw)
     want = flash_attention(q, k, v, impl="torch", **kw)
     torch.cuda.synchronize()
-    # 16-bit inputs on the tensor cores, fp32 on the CUDA cores
-    step = (0, 1) if wire == "float32" else (1, 0)
-    assert (FLASH_WGMMA.launches - before[0],
-            FLASH_SIMT.launches - before[1]) == step
+    # 16-bit inputs on wgmma, fp32 on mma.sync in 3xTF32
+    kern = FLASH_TF32X3 if wire == "float32" else FLASH_WGMMA
+    assert [kn.launches - b for kn, b in zip(FA_KERNELS, before)] == \
+        [int(kn is kern) for kn in FA_KERNELS]
     tol = 2e-6 if wire == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,K,G,D,window", FLASH_SHAPES)
+def test_cuda_core_flash_kernel_matches_plain_version_in_fp32(card, B, S, K,
+                                                              G, D, window):
+    """The CUDA-core kernel, named: the first design stays held against
+    the plain version in fp32."""
+    q, k, v = _flash_inputs(card, "float32", B, S, K, G, D)
+    kw = dict(window=window, causal=True, scale=D ** -0.5)
+    before = [kern.launches for kern in FA_KERNELS]
+    got = flash_attention_fwd_cuda(q, k, v, variant="simt", **kw)
+    want = flash_attention(q, k, v, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert [kn.launches - b for kn, b in zip(FA_KERNELS, before)] == \
+        [int(kn is FLASH_SIMT) for kn in FA_KERNELS]
+    torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
 
 
 @pytest.mark.gpu
@@ -157,13 +179,13 @@ def test_lm_prefill_on_the_card_matches_the_cpu(card):
     params = model.init(0, device="cpu")
     toks = torch.randint(0, 256, (2, 150), generator=torch.Generator()
                          .manual_seed(0), dtype=torch.int32)
-    before = (FLASH_SIMT.launches, FLASH_WGMMA.launches)
+    before = [kern.launches for kern in FA_KERNELS]
     got, _ = model.prefill(tree_map(lambda t: t.to(card), params),
                            {"tokens": toks.to(card)})
     torch.cuda.synchronize()
-    # one per layer, fp32 on the CUDA-core kernel
-    assert (FLASH_SIMT.launches, FLASH_WGMMA.launches) == \
-        (before[0] + 2, before[1])
+    # one per layer, fp32 (head dim 16) on the 3xTF32 kernel
+    assert [kn.launches - b for kn, b in zip(FA_KERNELS, before)] == \
+        [2 * int(kn is FLASH_TF32X3) for kn in FA_KERNELS]
     want, _ = model.prefill(params, {"tokens": toks})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 

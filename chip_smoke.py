@@ -158,6 +158,33 @@ on any fault; it imports nothing of the JAX package.  Phases:
    the submit's ms (what the round pays: the snapshot into pinned host
    memory), the write's ms on its thread, the restore's ms and the
    file's size.
+18. MoE / MLA serve, run after phase 8 (phase 7b's model is freed):
+   (a) full-width deepseek-v2-lite-16b (27 layers, MLA, 64 experts
+   top-6 + 2 shared, bf16, random params from seed 0 drawn on the card)
+   with ``moe_impl="ep"`` on ``make_host_mesh()``: the tree's params
+   against ``param_count()`` plus the MLA norm scales it leaves out,
+   the init's seconds and peak (at most 1.2x the params' bytes);
+   phase 7's prompts (4 x 2000 tokens) and 32 greedy decode steps with
+   the flash counts zeroed just before and 0 for all three kernels just
+   after (MLA runs the plain blockwise attention, as in the JAX
+   package), finite logits; cold and warm prefill, decode p50 / p99,
+   the MLA cache's bytes and the peak; two warm prefills bit-equal;
+   the loop again with each MoE block watched (``moe_watch``): ep's
+   capacity and dropped assignments per layer at prefill and over the
+   decode steps, the router's smallest top-k margin, and logits
+   bit-equal to the unwatched loop; a warm prefill and a decode step
+   under ``torch.profiler`` split into attention, MoE routing / gather
+   / scatter, other matrix products and the rest (``moe_split``), with
+   the idle share, and the step beside the time to read every weight
+   once at phase 2's copy rate.  (b) the same prompts with
+   ``moe_impl="dense"`` against ep at capacity factor E / k (no drops):
+   router indices equal in every MoE layer and the last logits within
+   ``MOE_DENSE_EP_TOL``.  (c) reduced deepseek-v2-lite-16b in fp32
+   (150-token prompts): decode against the full forward on the card
+   under dense dispatch (2e-3), the ep serve loop on the card against
+   the CPU within ``LM_PARITY_ATOL`` with the same greedy tokens, and
+   the loop with every token's expert indices rolled by one in the
+   first MoE layer above it, on the card and on the CPU alike.
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
 phase 14 in netd and at the controller, phase 15, phase 16.
@@ -218,8 +245,11 @@ from repro_torch.kernels.quantize import ref as q_ref  # noqa: E402
 from repro_torch.kernels.quantize.quantize import (  # noqa: E402
     DEQUANTIZE, KERNELS as Q_KERNELS, LIB as Q_LIB, QUANTIZE,
     dequantize_cuda, quantize_cuda)
-from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
+                                     make_host_mesh)
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
+from repro_torch.models import mla as mla_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.resnet import build_resnet  # noqa: E402
 from repro_torch.runtime import (ClientRuntime, FusedFLTrainer,  # noqa: E402
                                  PartialReady, UpdateArrived, WorkerCrashed)
@@ -1071,6 +1101,365 @@ def phase_lm_checks():
         raise AssertionError(f"rolled KV heads moved the logits by "
                              f"{planted:.3e}, inside {LM_PARITY_ATOL}")
     return tf32_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: MoE / MLA serving (deepseek-v2-lite-16b)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "deepseek-v2-lite-16b"
+#: dense against no-drop ep at full width in bf16, last-position logits,
+#: rtol = atol: the bf16 logit tolerance of tests/test_torch_lm.py (the
+#: two dispatches combine alike and are expected to agree bit for bit)
+MOE_DENSE_EP_TOL = 6e-2
+INIT_PEAK_LIMIT = 1.2        # init peak over the params' bytes
+
+
+def mla_norm_params(cfg) -> int:
+    """Params of the MLA norm scales (kv_a_norm, q_a_norm), which the
+    tree holds and ``ArchConfig.param_count`` leaves out, as in the JAX
+    package."""
+    return cfg.num_layers * (cfg.mla.kv_lora_rank + cfg.mla.q_lora_rank)
+
+
+@contextlib.contextmanager
+def moe_watch(plant=None):
+    """Record each MoE block's router indices, smallest top-k margin and
+    tokens tied across the top-k boundary and, under ep, its capacity
+    and dropped assignments (tensors, read after the run).  ``plant(i, idx)`` may replace the router's indices
+    of the i-th block called."""
+    orig_router, orig_route = moe_mod.router_probs, moe_mod.ep_route
+    rec = {"idx": [], "margin": [], "ties": [], "cap": [], "dropped": []}
+
+    def router(w, x, k):
+        gates, idx, probs = orig_router(w, x, k)
+        top = torch.topk(probs, k + 1, dim=-1).values
+        gap = top[:, k - 1] - top[:, k]
+        rec["margin"].append(gap.min())
+        rec["ties"].append((gap == 0).sum())
+        if plant is not None:
+            idx = plant(len(rec["idx"]), idx)
+        rec["idx"].append(idx)
+        return gates, idx, probs
+
+    def route(moe, gates, idx):
+        sel, sel_gate, rows = orig_route(moe, gates, idx)
+        rec["cap"].append(sel.shape[1])
+        rec["dropped"].append((rows < 0).sum())
+        return sel, sel_gate, rows
+
+    moe_mod.router_probs, moe_mod.ep_route = router, route
+    try:
+        yield rec
+    finally:
+        moe_mod.router_probs, moe_mod.ep_route = orig_router, orig_route
+
+
+def drop_counts(dropped, n_moe):
+    """Per MoE layer: the assignments dropped over whole passes of the
+    model (a pass calls every MoE layer once, in order), and the
+    total."""
+    dropped = [int(d) for d in dropped]
+    per_layer = [sum(dropped[i::n_moe]) for i in range(n_moe)]
+    return per_layer, sum(per_layer)
+
+
+def min_margin(rec) -> float:
+    return float(torch.stack([m.float() for m in rec["margin"]]).min())
+
+
+def boundary_ties(rec) -> int:
+    return int(sum(int(t) for t in rec["ties"]))
+
+
+@contextlib.contextmanager
+def labelled(module, names):
+    """Run ``module``'s functions ``names`` (name -> label) inside
+    ``torch.profiler`` ranges of those labels."""
+    from torch.profiler import record_function
+
+    orig = {n: getattr(module, n) for n in names}
+
+    def wrap(fn, label):
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    for n, label in names.items():
+        setattr(module, n, wrap(orig[n], label))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(module, n, fn)
+
+
+def moe_split(fn):
+    """``fn()`` once under torch.profiler: device ms of the attention
+    core (the blockwise scan of a prefill, ``flash_vjp.forward``; the
+    absorbed scores, softmax and latent output of a decode step), of the
+    MoE routing, gather and scatter (everything in the block's dispatch
+    but the experts' products), of the other matrix products (experts,
+    projections, unembedding) and of the rest; kernel count, wall time
+    and the device's idle share.  Each kernel is counted once, under
+    the innermost of those ranges that launched it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ranges = {"flash_vjp.forward": "attention_ms",
+              "mla.attend": "attention_ms", "moe.experts": None,
+              "moe.route": "moe_dispatch_ms",
+              "moe.dispatch": "moe_dispatch_ms"}
+    torch.cuda.synchronize()
+    with labelled(moe_mod, {"router_probs": "moe.route",
+                            "_moe_ep": "moe.dispatch",
+                            "_moe_dense": "moe.dispatch",
+                            "_experts": "moe.experts"}), \
+            labelled(mla_mod, {"_attend_latent": "mla.attend"}), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = {"attention_ms": 0.0, "moe_dispatch_ms": 0.0, "matmul_ms": 0.0,
+             "other_ms": 0.0}
+    kernels = 0
+    for e in prof.events():
+        for k in e.kernels:
+            p = e
+            while p is not None and p.name not in ranges:
+                p = p.cpu_parent
+            where = ranges[p.name] if p is not None else None
+            if where is None:       # outside the ranges, or an expert's
+                gemm = any(t in k.name.lower()
+                           for t in ("gemm", "nvjet", "cutlass", "xmma"))
+                where = "matmul_ms" if gemm else "other_ms"
+            split[where] += k.duration / 1e3
+            kernels += 1
+    busy = sum(split.values())
+    split.update(kernels=kernels, wall_ms=wall * 1e3, busy_ms=busy,
+                 idle_share=1.0 - busy / (wall * 1e3))
+    return split
+
+
+def moe_model(cfg, impl="ep", cap=LM_PROMPT + LM_STEPS + 8, **moe_over):
+    if moe_over:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, **moe_over))
+    return build_model(cfg, ModelOptions(
+        attn_impl="pallas", moe_impl=impl, mesh=make_host_mesh(),
+        remat=False, prefill_cache_capacity=cap))
+
+
+def bits_equal_trees(a, b) -> bool:
+    return all(bits_equal(x, y) for x, y in zip(tree_leaves(a),
+                                                tree_leaves(b)))
+
+
+def phase_moe_serve(copy_bps):
+    """Full-width deepseek-v2-lite-16b (bf16, random params from seed 0
+    drawn on the card): ep serving (prefill 4 x 2000, 32 greedy decode
+    steps) with its drops, device split and memory; then dense against
+    no-drop ep at full width; then the reduced config in fp32 on the
+    card against the CPU, with a planted routing fault."""
+    cfg = ARCHS[MOE_ARCH]
+    n_moe = sum(cfg.moe_layer_flags())
+    model = moe_model(cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    leaves = tree_leaves(params)
+    n_params = sum(l.numel() for l in leaves)
+    param_bytes = sum(l.numel() * l.element_size() for l in leaves)
+    if n_params != cfg.param_count() + mla_norm_params(cfg):
+        raise AssertionError(
+            f"{MOE_ARCH} has {n_params} params, the config counts "
+            f"{cfg.param_count()} + {mla_norm_params(cfg)} MLA norm scales")
+    if init_peak > INIT_PEAK_LIMIT * param_bytes:
+        raise AssertionError(f"init peaked at {init_peak / 1e9:.2f} GB for "
+                             f"{param_bytes / 1e9:.2f} GB of params")
+    prompts = torch.from_numpy(TokenTaskStream(
+        cfg.vocab_size, LM_PROMPT, seed=1).batch(LM_BATCH)["tokens"]).cuda()
+    cuda = torch.device("cuda")
+
+    # (a) the production dispatch: the flash counts around the cold loop
+    torch.cuda.reset_peak_memory_stats()
+    for kern in FA_KERNELS:
+        kern.launches = 0
+    logits, toks, prefill_s, lat, caches = serve(model, params, prompts,
+                                                 LM_STEPS, cuda)
+    launches = {kern.name: kern.launches for kern in FA_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        raise AssertionError(f"MLA launched flash kernels: {launches}")
+    if tuple(logits.shape) != (LM_BATCH, 1 + LM_STEPS, cfg.vocab_size):
+        raise AssertionError(f"logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    warm, warm_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm.append(model.prefill(params, {"tokens": prompts}))
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+    warm_s = min(warm_s)
+    twice = bits_equal(warm[0][0], warm[1][0]) and bits_equal_trees(
+        warm[0][1], warm[1][1])
+    if not twice:
+        raise AssertionError("two ep prefills differ")
+    del warm
+    with moe_watch() as rec:
+        w_logits, w_toks, *_ = serve(model, params, prompts, LM_STEPS, cuda)
+    pre_layers, pre_total = drop_counts(rec["dropped"][:n_moe], n_moe)
+    dec_layers, dec_total = drop_counts(rec["dropped"][n_moe:], n_moe)
+    lat_ms = sorted(x * 1e3 for x in lat)
+    row = {
+        "arch": MOE_ARCH, "params": n_params, "param_bytes": param_bytes,
+        "config_param_count": cfg.param_count(), "dtype": cfg.dtype,
+        "moe_impl": "ep", "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "steps": LM_STEPS, "init_s": init_s, "init_peak_gb": init_peak / 1e9,
+        "init_peak_over_params": init_peak / param_bytes,
+        "prefill_cold_ms": prefill_s * 1e3, "prefill_ms": warm_s * 1e3,
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / warm_s,
+        "decode_first_ms": lat[0] * 1e3,
+        "decode_p50_ms": float(np.percentile(lat_ms, 50)),
+        "decode_p99_ms": float(np.percentile(lat_ms, 99)),
+        "decode_tok_s": LM_BATCH * LM_STEPS / sum(lat),
+        "mla_cache_bytes": cache_bytes, "peak_mem_gb": peak / 1e9,
+        "flash_launches": launches, "two_prefills_bit_equal": twice,
+        "watched_run_bit_equal": bits_equal(w_logits, logits),
+        "ep_prefill": {"cap": rec["cap"][0], "assignments":
+                       LM_BATCH * LM_PROMPT * cfg.moe.top_k * n_moe,
+                       "dropped": pre_layers, "total": pre_total},
+        "ep_decode": {"cap": rec["cap"][n_moe], "assignments":
+                      LM_BATCH * cfg.moe.top_k * n_moe * LM_STEPS,
+                      "dropped": dec_layers, "total": dec_total},
+        "router_min_margin": min_margin(rec),
+        "router_boundary_ties": boundary_ties(rec),
+        "tokens_0": toks[0, :8].tolist()}
+    del rec, w_logits
+    if not row["watched_run_bit_equal"] or not bool((w_toks == toks).all()):
+        raise AssertionError("the ep serve loop is not deterministic")
+    log("moe_serve " + json.dumps(row))
+    log("moe_serve_prefill_device " + json.dumps(moe_split(
+        lambda: model.prefill(params, {"tokens": prompts}))))
+    tok = toks[:, -1:]
+    split = moe_split(lambda: model.decode_step(
+        params, tok, caches, LM_PROMPT + LM_STEPS))
+    # the least a decode step can take: every weight read once
+    split["weight_read_ms"] = param_bytes / copy_bps * 1e3
+    log("moe_serve_decode_device " + json.dumps(split))
+    del logits, caches
+
+    # (b) dense against ep at capacity factor E / k (no drops)
+    batch = {"tokens": prompts}
+    with moe_watch() as dense_rec:
+        dense_logits, _ = moe_model(cfg, "dense").prefill(params, batch)
+    no_drop = cfg.moe.num_experts / cfg.moe.top_k
+    with moe_watch() as ep_rec:
+        ep_logits, _ = moe_model(cfg, capacity_factor=no_drop).prefill(
+            params, batch)
+    same_idx = [bool(torch.equal(a, b)) for a, b in
+                zip(dense_rec["idx"], ep_rec["idx"])]
+    oracle = {
+        "capacity_factor": no_drop, "cap": ep_rec["cap"][0],
+        "dropped": drop_counts(ep_rec["dropped"], n_moe)[1],
+        "logits_max_abs_diff": float((dense_logits - ep_logits).abs().max()),
+        "logits_max_abs": float(dense_logits.abs().max()),
+        "tol": MOE_DENSE_EP_TOL, "router_idx_equal_layers": sum(same_idx),
+        "moe_layers": n_moe, "bit_equal": bits_equal(dense_logits, ep_logits),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("moe_oracle " + json.dumps(oracle))
+    del dense_rec, ep_rec, params
+    torch.cuda.empty_cache()
+    if oracle["dropped"]:
+        raise AssertionError(f"ep at capacity factor {no_drop} dropped "
+                             f"{oracle['dropped']} assignments")
+    if not all(same_idx):
+        raise AssertionError(f"dense and no-drop ep routed differently in "
+                             f"{n_moe - sum(same_idx)} of {n_moe} layers")
+    if not oracle["logits_max_abs_diff"] <= MOE_DENSE_EP_TOL * (
+            1 + oracle["logits_max_abs"]):
+        raise AssertionError(f"dense vs no-drop ep logits "
+                             f"{oracle['logits_max_abs_diff']:.3e}")
+    phase_moe_parity()
+    return row
+
+
+def phase_moe_parity():
+    """Reduced deepseek-v2-lite-16b in fp32 (150-token prompts): decode
+    against the full forward on the card under dense dispatch (the JAX
+    package's 2e-3); the ep serve loop on the card against the CPU
+    within ``LM_PARITY_ATOL`` with the same greedy tokens; and the loop
+    with every token's expert index rolled by one in the first MoE layer,
+    which must land above it on both sides and agree across them."""
+    steps = 8
+    cfg = ARCHS[MOE_ARCH].reduced(dtype="float32")
+    n_moe = sum(cfg.moe_layer_flags())
+    prompts = torch.from_numpy(TokenTaskStream(
+        cfg.vocab_size, 150, seed=1).batch(LM_BATCH)["tokens"])
+    cap = 150 + steps + 8
+    dense, ep = moe_model(cfg, "dense", cap), moe_model(cfg, "ep", cap)
+    params = ep.init(seed=0, device="cpu")
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    p_card = tree_map(lambda t: t.to(cuda), params)
+    full, _ = dense.prefill(p_card, {"tokens": prompts.to(cuda)})
+    _, caches = dense.prefill(p_card, {"tokens": prompts[:, :-1].to(cuda)})
+    dec, _ = dense.decode_step(p_card, prompts[:, -1:].to(cuda), caches,
+                               prompts.shape[1] - 1)
+    torch.cuda.synchronize()
+    check_close("MoE decode_step vs prefill", dec, full, 2e-3)
+
+    with moe_watch() as cpu_rec:
+        cpu_logits, cpu_toks, *_ = serve(ep, params, prompts, steps, cpu)
+    with moe_watch() as card_rec:
+        card_logits, card_toks, *_ = serve(ep, p_card, prompts.to(cuda),
+                                           steps, cuda)
+
+    def roll_first(i, idx):
+        return (idx + 1) % cfg.moe.num_experts if i % n_moe == 0 else idx
+
+    with moe_watch(roll_first) as bad_rec:
+        bad_logits, bad_toks, *_ = serve(ep, p_card, prompts.to(cuda), steps,
+                                         cuda)
+    with moe_watch(roll_first):
+        bad_cpu, bad_cpu_toks, *_ = serve(ep, params, prompts, steps, cpu)
+    sound = float((card_logits.cpu() - cpu_logits).abs().max())
+    planted = float((bad_logits.cpu() - cpu_logits).abs().max())
+    both_planted = float((bad_logits.cpu() - bad_cpu).abs().max())
+    same_tokens = bool((card_toks.cpu() == cpu_toks).all())
+    log("moe_parity " + json.dumps({
+        "decode_vs_prefill_max_abs": float((dec - full).abs().max()),
+        "max_abs_diff": sound, "planted_fault_max_abs_diff": planted,
+        "planted_card_vs_planted_cpu": both_planted,
+        "planted_calls": len(bad_rec["idx"]),
+        "planted_same_tokens": bool((bad_toks.cpu() == bad_cpu_toks).all()),
+        "atol": LM_PARITY_ATOL, "same_greedy_tokens": same_tokens,
+        "steps": steps, "router_min_margin_card": min_margin(card_rec),
+        "router_min_margin_cpu": min_margin(cpu_rec),
+        "router_boundary_ties_card": boundary_ties(card_rec),
+        "ep_dropped_card": drop_counts(card_rec["dropped"], n_moe)[1],
+        "ep_dropped_cpu": drop_counts(cpu_rec["dropped"], n_moe)[1]}))
+    if not both_planted <= LM_PARITY_ATOL:
+        raise AssertionError(f"with the planted fault, card vs CPU logits: "
+                             f"{both_planted:.3e} > {LM_PARITY_ATOL}")
+    if not same_tokens:
+        raise AssertionError("card and CPU chose different greedy tokens")
+    if not sound <= LM_PARITY_ATOL:
+        raise AssertionError(f"card vs CPU logits: {sound:.3e} > "
+                             f"{LM_PARITY_ATOL}")
+    if not planted > LM_PARITY_ATOL:
+        raise AssertionError(f"rolled expert indices moved the logits by "
+                             f"{planted:.3e}, inside {LM_PARITY_ATOL}")
 
 
 # ---------------------------------------------------------------------------
@@ -2038,6 +2427,9 @@ def main() -> int:
     fp32_row, fp32_dev = phase_fp32_prefill()
     tf32_lm_launches = phase_lm_checks()
 
+    # phase 18: MoE / MLA serving, full-width deepseek-v2-lite-16b
+    moe_row = phase_moe_serve(copy_bps)
+
     # phases 10-12: the quantize kernels, the fused round, its parity
     _, quant_rows = phase_quant()
     fused_row, fused_dev = phase_fused_round()
@@ -2180,6 +2572,9 @@ def main() -> int:
         "fp32_prefill_ms": fp32_row["prefill_ms"],
         "fp32_prefill_cuda_core_ms": fp32_row["prefill_cuda_core_ms"],
         "fp32_prefill_flash_share": fp32_dev["flash_share"],
+        "moe_serve_prefill_ms": moe_row["prefill_ms"],
+        "moe_serve_decode_p50_ms": moe_row["decode_p50_ms"],
+        "moe_serve_peak_mem_gb": moe_row["peak_mem_gb"],
         "fused_round_warm_s": fused_row["int8_warm_s"],
         "fused_round_quant_ms": fused_dev["quantize_ms"]
         + fused_dev["dequantize_ms"],

@@ -6,9 +6,13 @@ HWIO, the port OIHW.  A 4-D leaf is permuted only under a conv
 kernel's key (``CONV_KEYS``); any other 4-D leaf is refused, so a tree
 of another model is never permuted by accident.  LM trees keep every
 leaf's layout and dtype and go through ``lm_params_from_jax`` /
-``lm_params_to_jax``.  Flat vectors keep the JAX layout on the wire
+``lm_params_to_jax``: the stacked experts of an MoE layer
+(``(layers, E, d, f)``), its fp32 router and MLA's latent projections
+included.  Flat vectors keep the JAX layout on the wire
 (``flatten_jax_layout``), so an update from either package folds into
-the other.
+the other; ``conv_flags`` there still refuses a 4-D leaf that is not a
+conv kernel, so an MoE tree does not cross the flat wire path yet
+(ROADMAP A.6: the MoE fused round).
 
 bf16 leaves: the JAX side hands them over as ``ml_dtypes.bfloat16``
 numpy arrays, which ``torch.from_numpy`` refuses and the port does not

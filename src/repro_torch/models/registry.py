@@ -102,7 +102,6 @@ class LM:
             hidden, w, labels, vocab=self.cfg.vocab_size, tied=tied,
             model_axis=self.opts.vocab_axis, chunk=self.opts.loss_chunk,
             mesh=self.opts.mesh)
-        aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         total = ce + MOE_AUX_WEIGHT * aux
         return total, {"ce": ce, "moe_aux": aux}
 

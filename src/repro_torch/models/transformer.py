@@ -1,17 +1,21 @@
-"""Decoder stack for the dense attention-only archs.
+"""Decoder stack for the attention-only archs: dense, GQA and MLA
+attention with a dense or MoE feed-forward.
 
 The JAX package's ``models/transformer.py`` for ``kind="attn"`` blocks
-without MoE or cross-attention.  Layers are grouped into *segments*:
-maximal runs of layers with one static :class:`LayerSpec`.  A segment's
-params keep the JAX layout — each leaf stacked on a leading layer axis,
-as ``jax.vmap`` builds it — and the JAX package's ``lax.scan`` over that
+without cross-attention.  Layers are grouped into *segments*: maximal
+runs of layers with one static :class:`LayerSpec`.  A segment's params
+keep the JAX layout — each leaf stacked on a leading layer axis, as
+``jax.vmap`` builds it — and the JAX package's ``lax.scan`` over that
 axis is a Python loop here, over one ``torch.unbind`` of each stacked
 leaf per segment (its backward stacks the layers' gradients once; taking
 ``a[i]`` per layer would allocate a zero tensor the size of the whole
 stack in every layer's backward).  ``remat=True`` runs each layer under
 ``torch.utils.checkpoint``, as the JAX package wraps the scan body in
-``jax.checkpoint``.  SSM, MLA, MoE and hybrid blocks are refused by
-name.
+``jax.checkpoint``.  MLA configs (``cfg.mla``) take ``models/mla.py``'s
+attention and latent ring cache; MoE layers ``models/moe.py``'s block,
+whose load-balance loss ``apply_stack`` sums over the layers; the
+leading dense layers of an MoE config take an FFN of ``dense_d_ff``.
+SSM, hybrid and cross-attention blocks are refused by name.
 
 Param tree:
   {"embed": (V,D), "segments": [stacked dict], "final_norm": {...},
@@ -26,6 +30,8 @@ import torch
 
 from repro_torch.configs.base import GLOBAL, ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import ffn, init_ffn, init_rmsnorm, rmsnorm
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -95,10 +101,6 @@ def check_block(cfg: ArchConfig, spec: LayerSpec) -> None:
         what = "SSM (Mamba) blocks"
     elif spec.kind == "hybrid":
         what = "hybrid attention + SSM blocks"
-    elif cfg.mla is not None:
-        what = "MLA attention"
-    elif spec.moe:
-        what = "MoE blocks"
     elif spec.cross:
         what = "cross-attention (enc-dec) blocks"
     if what is not None:
@@ -131,13 +133,34 @@ def _layers(tree: Any) -> List[Any]:
 def _init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
                 dtype: torch.dtype) -> dict:
     d = cfg.d_model
-    d_ff = cfg.moe.dense_d_ff if cfg.moe is not None else cfg.d_ff
-    return {
-        "ln1": init_rmsnorm(d, dtype, gen.device),
-        "attn": attn_mod.init_attention(gen, cfg, dtype),
-        "ln2": init_rmsnorm(d, dtype, gen.device),
-        "ffn": init_ffn(gen, d, d_ff, dtype),
-    }
+    p = {"ln1": init_rmsnorm(d, dtype, gen.device)}
+    if cfg.mla is not None:
+        p["attn"] = mla_mod.init_mla(gen, cfg, dtype)
+    else:
+        p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
+    p["ln2"] = init_rmsnorm(d, dtype, gen.device)
+    if spec.moe:
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype)
+    else:
+        d_ff = cfg.moe.dense_d_ff if cfg.moe is not None else cfg.d_ff
+        p["ffn"] = init_ffn(gen, d, d_ff, dtype)
+    return p
+
+
+def _init_stacked(count: int, draw) -> Any:
+    """``count`` trees from ``draw()``, stacked on a leading axis.  Each
+    layer is copied into its slot as it is drawn and freed before the
+    next, so the peak is the stack and one layer (an MoE layer of
+    deepseek-v2-lite-16b holds 1.1 GB of experts)."""
+    stacked = None
+    for i in range(count):
+        leaves, treedef = tree_flatten(draw())
+        if stacked is None:
+            stacked = [l.new_empty((count,) + tuple(l.shape)) for l in leaves]
+        for s, l in zip(stacked, leaves):
+            s[i] = l
+        del leaves, l       # the layer dies here, before the next is drawn
+    return tree_unflatten(treedef, stacked)
 
 
 def init_stack(gen: torch.Generator, cfg: ArchConfig, specs: List[LayerSpec],
@@ -146,8 +169,8 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, specs: List[LayerSpec],
     seg_params = []
     for count, spec in segment_specs(specs):
         check_block(cfg, spec)
-        seg_params.append(
-            _stack([_init_block(gen, cfg, spec, dtype) for _ in range(count)]))
+        seg_params.append(_init_stacked(
+            count, lambda: _init_block(gen, cfg, spec, dtype)))
     return seg_params
 
 
@@ -156,27 +179,44 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, specs: List[LayerSpec],
 # ---------------------------------------------------------------------------
 
 
+def _feed_forward(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
+                  params: dict, h2: torch.Tensor):
+    """-> (y, aux): the layer's MoE block, or its dense FFN (aux None)."""
+    if spec.moe:
+        return moe_mod.moe_block(cfg, params["moe"], h2, impl=opts.moe_impl,
+                                 mesh=opts.mesh, model_axis=opts.model_axis)
+    return ffn(params["ffn"], h2), None
+
+
 def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
                  params: dict, x: torch.Tensor, positions: torch.Tensor,
                  collect_cache: bool):
-    """-> (x, cache_or_None)."""
+    """-> (x, aux or None, cache_or_None)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    a = attn_mod.attention(cfg, params["attn"], h, positions,
-                           window=spec.window, causal=spec.causal,
-                           impl=opts.attn_impl, block_kv=opts.block_kv,
-                           model_axis=opts.model_axis, mesh=opts.mesh,
-                           return_kv=collect_cache)
+    if cfg.mla is not None:
+        a = mla_mod.mla_attention(cfg, params["attn"], h, positions,
+                                  causal=spec.causal, impl=opts.attn_impl,
+                                  block_kv=opts.block_kv,
+                                  model_axis=opts.model_axis, mesh=opts.mesh,
+                                  return_latent=collect_cache)
+    else:
+        a = attn_mod.attention(cfg, params["attn"], h, positions,
+                               window=spec.window, causal=spec.causal,
+                               impl=opts.attn_impl, block_kv=opts.block_kv,
+                               model_axis=opts.model_axis, mesh=opts.mesh,
+                               return_kv=collect_cache)
     cache_out = None
     if collect_cache:
-        # the roped k and v the attention just projected go to the cache
-        # (the JAX package projects them again, and XLA merges the two)
-        a, (k, v) = a
+        # the cache takes what the attention just projected: the roped k
+        # and v, or MLA's latent and roped key (the JAX package projects
+        # them again, and XLA merges the two)
+        a, kv = a
         cap = opts.prefill_cache_capacity or h.shape[1]
-        cache_out = _attn_cache_from_prefill(spec, k, v, cap)
+        cache_out = _attn_cache_from_prefill(cfg, spec, kv, cap)
     x = x + a
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    x = x + ffn(params["ffn"], h2)
-    return x, cache_out
+    y, aux = _feed_forward(cfg, spec, opts, params, h2)
+    return x + y, aux, cache_out
 
 
 def _ring_place(t: torch.Tensor, cap: int) -> torch.Tensor:
@@ -193,8 +233,12 @@ def _ring_place(t: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
-def _attn_cache_from_prefill(spec, k, v, cap):
-    """The decode cache from the prefill's roped K/V."""
+def _attn_cache_from_prefill(cfg, spec, kv, cap):
+    """The decode cache from the prefill's roped K/V or MLA latent."""
+    if cfg.mla is not None:
+        c, k_rope = kv
+        return {"c": _ring_place(c, cap), "k_rope": _ring_place(k_rope, cap)}
+    k, v = kv
     cap_w = cap if spec.window == GLOBAL else min(spec.window, cap)
     return {"k": _ring_place(k, cap_w), "v": _ring_place(v, cap_w)}
 
@@ -204,20 +248,26 @@ def _attn_cache_from_prefill(spec, k, v, cap):
 # ---------------------------------------------------------------------------
 
 
-def _decode_block(cfg: ArchConfig, spec: LayerSpec, params: dict,
-                  x: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
+def _decode_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
+                  params: dict, x: torch.Tensor, cache: dict,
+                  pos: int) -> torch.Tensor:
     """One layer's decode step; writes the layer's cache in place."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    a, _ = attn_mod.attention_decode(cfg, params["attn"], h, cache, pos,
-                                     window=spec.window)
+    if cfg.mla is not None:
+        a, _ = mla_mod.mla_decode(cfg, params["attn"], h, cache, pos)
+    else:
+        a, _ = attn_mod.attention_decode(cfg, params["attn"], h, cache, pos,
+                                         window=spec.window)
     x = x + a
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + ffn(params["ffn"], h2)
+    return x + _feed_forward(cfg, spec, opts, params, h2)[0]
 
 
 def init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                      capacity: int, dtype: torch.dtype, device) -> dict:
     check_block(cfg, spec)
+    if cfg.mla is not None:
+        return mla_mod.init_mla_cache(cfg, batch, capacity, dtype, device)
     return attn_mod.init_kv_cache(cfg, batch, capacity, spec.window, dtype,
                                   device)
 
@@ -230,9 +280,11 @@ def init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
 def apply_stack(cfg: ArchConfig, seg_params: List[Any],
                 specs: List[LayerSpec], opts: ModelOptions, x: torch.Tensor,
                 positions: torch.Tensor, collect_cache: bool = False):
-    """-> (x, aux (0: no MoE), caches_per_segment | None)."""
+    """-> (x, aux (the MoE layers' load-balance losses summed; 0 without
+    MoE), caches_per_segment | None)."""
     from torch.utils.checkpoint import checkpoint
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = [] if collect_cache else None
     for sp, (count, spec) in zip(seg_params, segment_specs(specs)):
 
@@ -243,14 +295,16 @@ def apply_stack(cfg: ArchConfig, seg_params: List[Any],
         seg_cache = []
         for layer_params in _layers(sp):
             if opts.remat:
-                x, cache = checkpoint(body, layer_params, x,
-                                      use_reentrant=False)
+                x, aux, cache = checkpoint(body, layer_params, x,
+                                           use_reentrant=False)
             else:
-                x, cache = body(layer_params, x)
+                x, aux, cache = body(layer_params, x)
+            if aux is not None:
+                aux_total = aux_total + aux
             seg_cache.append(cache)
         if collect_cache:
             caches.append(_stack(seg_cache))
-    return x, 0.0, caches
+    return x, aux_total, caches
 
 
 def decode_stack(cfg: ArchConfig, seg_params: List[Any],
@@ -260,7 +314,7 @@ def decode_stack(cfg: ArchConfig, seg_params: List[Any],
     for sp, cache, (count, spec) in zip(seg_params, caches,
                                         segment_specs(specs)):
         for i in range(count):
-            x = _decode_block(cfg, spec, _layer(sp, i), x,
+            x = _decode_block(cfg, spec, opts, _layer(sp, i), x,
                               _layer(cache, i), pos)
     return x, caches
 

@@ -16,41 +16,44 @@ _LEAF, _NONE, _DICT, _LIST, _TUPLE = "leaf", "none", "dict", "list", "tuple"
 def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
     """-> (leaves in JAX order, treedef for :func:`tree_unflatten`)."""
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def walk(node: Any) -> Any:
-        if node is None:
-            return (_NONE,)
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return (_DICT, tuple(keys), tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            kind = _LIST if isinstance(node, list) else _TUPLE
-            return (kind, tuple(walk(c) for c in node))
-        leaves.append(node)
-        return (_LEAF,)
 
-    treedef = walk(tree)
-    return leaves, treedef
+# The walks are module functions, not closures that call themselves: a
+# recursive closure is a reference cycle that would keep the leaves
+# alive until the cyclic garbage collector runs.
+def _flatten_into(node: Any, leaves: List[Any]) -> Any:
+    if node is None:
+        return (_NONE,)
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return (_DICT, tuple(keys),
+                tuple(_flatten_into(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        kind = _LIST if isinstance(node, list) else _TUPLE
+        return (kind, tuple(_flatten_into(c, leaves) for c in node))
+    leaves.append(node)
+    return (_LEAF,)
 
 
 def tree_unflatten(treedef: Any, leaves: List[Any]) -> Any:
     it = iter(leaves)
-
-    def build(d: Any) -> Any:
-        kind = d[0]
-        if kind == _LEAF:
-            return next(it)
-        if kind == _NONE:
-            return None
-        if kind == _DICT:
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        children = [build(c) for c in d[1]]
-        return children if kind == _LIST else tuple(children)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out
+
+
+def _build(d: Any, it: Iterator[Any]) -> Any:
+    kind = d[0]
+    if kind == _LEAF:
+        return next(it)
+    if kind == _NONE:
+        return None
+    if kind == _DICT:
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    children = [_build(c, it) for c in d[1]]
+    return children if kind == _LIST else tuple(children)
 
 
 def tree_leaves(tree: Any) -> List[Any]:

@@ -190,6 +190,41 @@ def test_lm_prefill_on_the_card_matches_the_cpu(card):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ep_on_the_card_is_bit_equal_twice_and_matches_the_cpu(card,
+                                                                   dtype):
+    """Reduced deepseek-v2-lite-16b's MoE block, ep at the default
+    capacity factor on 4 x 256 tokens that share a component (so experts
+    overflow and drop): two runs on the card bit-equal, and against the
+    CPU within ``tests/test_torch_moe_mla.py``'s block tolerance (fp32
+    1e-4; bf16 1e-2 of the largest output)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wire = WIRE[dtype]
+    cfg = ARCHS["deepseek-v2-lite-16b"].reduced(dtype=dtype)
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg, wire)
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn(4, 256, cfg.d_model, generator=g)
+         + torch.randn(cfg.d_model, generator=g)).to(wire)
+    on_card = tree_map(lambda t: t.to(card), params)
+    mesh = make_host_mesh()
+    runs = [moe.moe_block(cfg, on_card, x.to(card), impl="ep", mesh=mesh)[0]
+            for _ in range(2)]
+    _equal_bits(runs[0], runs[1])
+    want, _ = moe.moe_block(cfg, params, x, impl="ep", mesh=mesh)
+    gates, idx, _ = moe.router_probs(params["router"], x.reshape(-1, 64), 2)
+    assert int((moe.ep_route(cfg.moe, gates, idx)[2] < 0).sum()) > 0
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    scale = 1.0 if dtype == "float32" else float(want.float().abs().max())
+    torch.testing.assert_close(runs[0].cpu().float(), want.float(), rtol=tol,
+                               atol=tol * scale)
+
+
 def _equal_bits(a, b):
     assert a.dtype == b.dtype and a.shape == b.shape
     if a.dtype.is_floating_point:

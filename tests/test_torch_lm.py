@@ -32,7 +32,9 @@ from repro_torch.configs import ARCHS as TORCH_ARCHS
 from repro_torch.configs.base import MoEConfig
 from repro_torch.convert import (lm_params_from_jax, lm_params_to_jax,
                                  params_from_jax)
-from repro_torch.models import LM, ModelOptions, build_model
+from repro_torch.fl.round import AggregationConfig, build_train_step
+from repro_torch.launch.mesh import make_debug_mesh, make_host_mesh
+from repro_torch.models import ModelOptions, build_model
 from repro_torch.models import attention as tattn
 from repro_torch.models import sharded_vocab
 
@@ -241,13 +243,45 @@ def test_a_4d_leaf_that_is_not_a_conv_kernel_is_never_permuted():
 # what is not ported is refused by name
 # ---------------------------------------------------------------------------
 
+#: MLA and MoE archs, refused until their blocks were ported: their
+#: cases now check that they build and prefill
+PORTED_SINCE = {"deepseek-v2-lite-16b", "kimi-k2-1t-a32b"}
+
+
+def _builds_and_prefills(cfg, **over):
+    model = build_model(cfg, _opts(ModelOptions, mesh=make_host_mesh(),
+                                   **over))
+    logits, caches = model.prefill(model.init(0, device="cpu"),
+                                   {"tokens": torch.zeros(1, 4,
+                                                          dtype=torch.int32)})
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert len(caches) == len(model.init_decode(1, 8, device="cpu"))
+
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b",
                                   "deepseek-v2-lite-16b", "kimi-k2-1t-a32b",
                                   "seamless-m4t-large-v2", "internvl2-26b"])
 def test_unported_archs_are_refused(arch):
+    cfg = TORCH_ARCHS[arch].reduced()
+    if arch in PORTED_SINCE:
+        for impl in ("dense", "ep"):
+            _builds_and_prefills(cfg, moe_impl=impl)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        build_model(TORCH_ARCHS[arch].reduced(), _opts(ModelOptions))
+        build_model(cfg, _opts(ModelOptions))
+
+
+def test_moe_ep_needs_a_model_axis_of_size_1():
+    """ep on one card is the expert-parallel body with every expert
+    local: without a mesh, or on a model axis above 1, it is refused."""
+    cfg = TORCH_ARCHS["deepseek-v2-lite-16b"].reduced(dtype="float32")
+    model = build_model(cfg, _opts(ModelOptions, moe_impl="ep"))
+    params = model.init(0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        model.prefill(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        make_debug_mesh((1, 2), ("data", "model"))
 
 
 @pytest.mark.parametrize("over,item", [
@@ -277,10 +311,14 @@ def test_training_moe_and_cross_attention_are_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         model.prefill(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
                                "frontend": torch.zeros(1, 2, 64)})
+    # MoE blocks serve: a dense arch given an MoE config builds and
+    # prefills; its fused round is refused
     moe = cfg.__class__(**{**cfg.__dict__, "moe": MoEConfig(
         num_experts=4, top_k=2, expert_d_ff=32)})
-    with pytest.raises(NotImplementedError, match="MoE blocks.*ROADMAP A.6"):
-        LM(moe)
+    _builds_and_prefills(moe)
+    with pytest.raises(NotImplementedError, match="MoE fused round.*A.6"):
+        build_train_step(moe, make_debug_mesh((1, 1), ("data", "model")),
+                         AggregationConfig())
     layer = tattn.init_attention(torch.Generator().manual_seed(0), cfg,
                                  torch.float32)
     x = torch.zeros(1, 4, 64)

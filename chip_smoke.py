@@ -108,7 +108,9 @@ on any fault; it imports nothing of the JAX package.  Phases:
 12. round parity (reduced llama3.2-3b, fp32): one int8 round on the
    card against the CPU within the two-part limit (at most 0.1 % of
    elements over 1e-5, none over one quantization step of its block),
-   and the card with one pod's delta counted twice above it.
+   and the card with one pod's delta counted twice above it
+   (``phase_round_parity``; phase 19 runs it on reduced
+   deepseek-v2-lite-16b).
 13. shmproc: phase 5's workload through ``Session.open(...,
    runtime="shmproc")``: forked numpy workers fold the mids on the host
    (as in the JAX package), the card trains the clients and folds the
@@ -173,8 +175,9 @@ on any fault; it imports nothing of the JAX package.  Phases:
    capacity and dropped assignments per layer at prefill and over the
    decode steps, the router's smallest top-k margin, and logits
    bit-equal to the unwatched loop; a warm prefill and a decode step
-   under ``torch.profiler`` split into attention, MoE routing / gather
-   / scatter, other matrix products and the rest (``moe_split``), with
+   under ``torch.profiler`` split into attention, the experts'
+   products, MoE routing / gather / scatter, other matrix products and
+   the rest (``moe_split``), with
    the idle share, and the step beside the time to read every weight
    once at phase 2's copy rate.  (b) the same prompts with
    ``moe_impl="dense"`` against ep at capacity factor E / k (no drops):
@@ -185,12 +188,37 @@ on any fault; it imports nothing of the JAX package.  Phases:
    the CPU within ``LM_PARITY_ATOL`` with the same greedy tokens, and
    the loop with every token's expert indices rolled by one in the
    first MoE layer above it, on the card and on the CPU alike.
+19. MoE / MLA fused round, run after phase 12 (phase 18's model is
+   freed): deepseek-v2-lite-16b at full width and 6 layers (the dense
+   first layer and 5 MoE layers; bf16, random params from seed 0)
+   through phase 11's round with the JAX package's ``build_train_step``
+   options (ep, ``chunked_sp``, remat): the tree's params against
+   ``param_count()`` plus the MLA norm scales; one int8 round with
+   every launch count zeroed just before and read just after
+   (quantize and dequantize once per leaf and pod) and each MoE
+   layer's forward watched (``round_watch``: ep capacity, dropped
+   assignments, the router's smallest top-k margin; a recompute under
+   remat routes as its forward did and is not counted); one
+   ``compress="none"`` round from the same params (the int8 params
+   within 5 % relative of these); a warm int8 round, bit-equal to the
+   first; one under ``torch.profiler`` split into attention, the
+   experts' products, MoE dispatch, quantize, other matrix products and
+   the rest, a backward kernel under its forward op's range
+   (``moe_split``), with the idle share; the quantize kernels against
+   their plain versions at the largest leaf (the experts' gate delta,
+   (5, 64, 2048, 1408) fp32 padded to whole blocks: 3,932,160 rows);
+   then reduced deepseek-v2-lite-16b's int8 round on the card against
+   the CPU within the two-part limit, and above it with one pod counted
+   twice and with every token's experts rolled by one in the first MoE
+   layer (``moe_round_parity``).
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
-phase 14 in netd and at the controller, phase 15, phase 16.
+phase 14 in netd and at the controller, phase 15, phase 16, phase 19;
+each quantize kernel its launches in phases 11 and 19.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -1197,24 +1225,36 @@ def labelled(module, names):
 
 def moe_split(fn):
     """``fn()`` once under torch.profiler: device ms of the attention
-    core (the blockwise scan of a prefill, ``flash_vjp.forward``; the
-    absorbed scores, softmax and latent output of a decode step), of the
-    MoE routing, gather and scatter (everything in the block's dispatch
-    but the experts' products), of the other matrix products (experts,
-    projections, unembedding) and of the rest; kernel count, wall time
-    and the device's idle share.  Each kernel is counted once, under
-    the innermost of those ranges that launched it."""
-    from torch.profiler import ProfilerActivity, profile
+    core (the blockwise scan, ``flash_vjp.*``; the absorbed scores,
+    softmax and latent output of a decode step), of the experts'
+    products, of the MoE routing, gather and scatter (the block's
+    dispatch but the experts), of the quantize and dequantize kernels,
+    of the other matrix products (projections, shared experts,
+    unembedding) and of the rest; kernel count, wall time and the
+    device's idle share.  Each kernel is counted once, under the
+    innermost of those ranges that launched it; a backward kernel under
+    the range of the forward op it differentiates (the autograd node's
+    sequence number and forward thread); a kernel launched outside any
+    op (the ctypes launches) by its name."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
 
     ranges = {"flash_vjp.forward": "attention_ms",
-              "mla.attend": "attention_ms", "moe.experts": None,
+              "flash_vjp.backward": "attention_ms",
+              "mla.attend": "attention_ms", "moe.experts": "experts_ms",
               "moe.route": "moe_dispatch_ms",
               "moe.dispatch": "moe_dispatch_ms"}
+
+    def labelled_range(e):
+        while e is not None and e.name not in ranges:
+            e = e.cpu_parent
+        return ranges[e.name] if e is not None else None
+
     torch.cuda.synchronize()
     with labelled(moe_mod, {"router_probs": "moe.route",
                             "_moe_ep": "moe.dispatch",
                             "_moe_dense": "moe.dispatch",
                             "_experts": "moe.experts"}), \
+            labelled(moe_mod.Route, {"choose": "moe.route"}), \
             labelled(mla_mod, {"_attend_latent": "mla.attend"}), \
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
@@ -1222,24 +1262,51 @@ def moe_split(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    split = {"attention_ms": 0.0, "moe_dispatch_ms": 0.0, "matmul_ms": 0.0,
-             "other_ms": 0.0}
-    kernels = 0
-    for e in prof.events():
-        for k in e.kernels:
-            p = e
-            while p is not None and p.name not in ranges:
-                p = p.cpu_parent
-            where = ranges[p.name] if p is not None else None
-            if where is None:       # outside the ranges, or an expert's
-                gemm = any(t in k.name.lower()
-                           for t in ("gemm", "nvjet", "cutlass", "xmma"))
-                where = "matmul_ms" if gemm else "other_ms"
-            split[where] += k.duration / 1e3
+    events = prof.events()
+    forward = {}        # (thread, sequence number) -> range of the op
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            where = labelled_range(e)
+            if where is not None:
+                forward[e.thread, e.sequence_nr] = where
+    def by_name(name):
+        name = name.lower()
+        if "quantize_kernel" in name:
+            return "quantize_ms"
+        gemm = any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma"))
+        return "matmul_ms" if gemm else "other_ms"
+
+    split = {"attention_ms": 0.0, "experts_ms": 0.0, "moe_dispatch_ms": 0.0,
+             "quantize_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    # every device event counts once: under the op that launched it, or
+    # (a kernel launched outside any op, as the ctypes launches are) by
+    # its name
+    unplaced, kernels = collections.Counter(), 0
+    for e in events:
+        # a range's span on the device's timeline is no device work
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False) or e.name in ranges):
+            unplaced[e.name] += e.time_range.elapsed_us()
             kernels += 1
+    top = [(us / 1e3, name[:80]) for name, us in unplaced.most_common(8)]
+    for e in events:
+        for k in e.kernels:
+            where = labelled_range(e)
+            p = e
+            while where is None and p is not None:
+                if p.name.startswith("autograd::engine::evaluate_function"):
+                    where = forward.get((p.fwd_thread, p.sequence_nr))
+                    break
+                p = p.cpu_parent
+            if where is None or by_name(k.name) == "quantize_ms":
+                where = by_name(k.name)
+            split[where] += k.duration / 1e3
+            unplaced[k.name] -= k.duration
+    for name, us in unplaced.items():
+        split[by_name(name)] += max(us, 0) / 1e3
     busy = sum(split.values())
     split.update(kernels=kernels, wall_ms=wall * 1e3, busy_ms=busy,
-                 idle_share=1.0 - busy / (wall * 1e3))
+                 idle_share=1.0 - busy / (wall * 1e3), top=top)
     return split
 
 
@@ -1629,6 +1696,53 @@ def timed_round(trainer, params, batch):
     return rec, time.perf_counter() - t0
 
 
+def driven_round(trainer, params, batch):
+    """One round from ``params`` with every launch count zeroed just
+    before and read just after: -> (metrics record, wall s, launches,
+    peak device bytes)."""
+    for k in all_kernels():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rec, wall = timed_round(trainer, params, batch)
+    launches = {k.name: k.launches for k in all_kernels()}
+    return rec, wall, launches, torch.cuda.max_memory_allocated()
+
+
+def check_int8_round(arch, leaves, int8, none):
+    """The checks of an int8 round and a ``compress="none"`` round from
+    the params ``leaves``, each given as (metrics record, params,
+    launches): quantize and dequantize once per leaf and pod in the int8
+    round and never in the other, finite metrics, params moved and
+    finite, the int8 params within 5 % (relative) of the others.  -> that
+    relative difference."""
+    (rec8, p8, launches8), (recn, pn, launchesn) = int8, none
+    want = 2 * len(leaves)
+    for name in (QUANTIZE.name, DEQUANTIZE.name):
+        if launches8[name] != want:
+            raise AssertionError(f"{arch}: the int8 round launched {name} "
+                                 f"{launches8[name]} times, not {want} "
+                                 f"({len(leaves)} leaves x 2 pods)")
+        if launchesn[name] != 0:
+            raise AssertionError(f"{arch}: the uncompressed round launched "
+                                 f"{name}")
+    for tag, rec in (("int8", rec8), ("none", recn)):
+        if not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"{arch}: {tag} round: non-finite metrics "
+                                 f"{rec}")
+    p8 = tree_leaves(p8)
+    rel = max(float((a.float() - b.float()).abs().max()
+                    / (b.float().abs().max() + 1e-9))
+              for a, b in zip(p8, tree_leaves(pn)))
+    moved = any(bool((a != b).any()) for a, b in zip(p8, leaves))
+    if not (moved and all(bool(torch.isfinite(l).all()) for l in p8)):
+        raise AssertionError(f"{arch}: the int8 round left non-finite or "
+                             "unchanged params")
+    if not rel < 0.05:
+        raise AssertionError(f"{arch}: int8 vs none params: relative "
+                             f"{rel:.3e} >= 0.05")
+    return rel
+
+
 def phase_fused_round():
     """Full-width llama3.2-3b (bf16, random params from seed 0): one
     hierarchical int8 round on a 2-pod mesh, each pod 4 sequences of 512
@@ -1650,44 +1764,15 @@ def phase_fused_round():
         raise AssertionError(f"{LM_ARCH}: {sum(l.numel() for l in leaves)} "
                              f"params, the config counts {cfg.param_count()}")
 
-    def driven(trainer):
-        for k in all_kernels():
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        rec, wall = timed_round(trainer, p0, batch)
-        launches = {k.name: k.launches for k in all_kernels()}
-        return rec, wall, launches, torch.cuda.max_memory_allocated()
-
-    rec8, cold_s, launches8, peak8 = driven(t8)
+    rec8, cold_s, launches8, peak8 = driven_round(t8, p0, batch)
     p8 = t8.params
-    recn, none_s, launchesn, peakn = driven(tn)
+    recn, none_s, launchesn, peakn = driven_round(tn, p0, batch)
     pn = tn.params
-    want = 2 * len(leaves)
-    for name in (QUANTIZE.name, DEQUANTIZE.name):
-        if launches8[name] != want:
-            raise AssertionError(f"the int8 round launched {name} "
-                                 f"{launches8[name]} times, not {want} "
-                                 f"({len(leaves)} leaves x 2 pods)")
-        if launchesn[name] != 0:
-            raise AssertionError(f"the uncompressed round launched {name}")
-    rel = max(float((a.float() - b.float()).abs().max()
-                    / (b.float().abs().max() + 1e-9))
-              for a, b in zip(tree_leaves(p8), tree_leaves(pn)))
-    moved = any(bool((a != b).any()) for a, b in zip(tree_leaves(p8), leaves))
-    finite = all(bool(torch.isfinite(l).all()) for l in tree_leaves(p8))
+    rel = check_int8_round(LM_ARCH, leaves, (rec8, p8, launches8),
+                           (recn, pn, launchesn))
     del p8, pn
     tn.params = None
-    recs = {"int8": rec8, "none": recn}
-    for tag, rec in recs.items():
-        if not all(np.isfinite(v) for v in rec.values()):
-            raise AssertionError(f"{tag} round: non-finite metrics {rec}")
-    if not (finite and moved):
-        raise AssertionError("the int8 round left non-finite or unchanged "
-                             "params")
-    if not rel < 0.05:
-        raise AssertionError(f"int8 vs none params: relative {rel:.3e} "
-                             ">= 0.05")
-    warm8, warm_s, _, _ = driven(t8)
+    warm8, warm_s, _, _ = driven_round(t8, p0, batch)
     t8.params = p0
     split = fused_split(lambda: timed_round(t8, p0, batch))
     row = {
@@ -1764,12 +1849,14 @@ def pod_counted_twice():
         raise AssertionError("the planted fault never fired")
 
 
-def phase_round_parity():
-    """Reduced llama3.2-3b in fp32: one hierarchical int8 round on the
-    card (the kernels) against the same round on the CPU (the plain
-    versions), from the same params; and on the card with one pod's
-    delta counted twice, which must land above the limit."""
-    cfg = ARCHS[LM_ARCH].reduced(dtype="float32")
+def phase_round_parity(arch=LM_ARCH, faults=(("pod_counted_twice",
+                                               pod_counted_twice),),
+                       label="round_parity"):
+    """Reduced ``arch`` in fp32: one hierarchical int8 round on the card
+    (the kernels) against the same round on the CPU (the plain
+    versions), from the same params; and on the card with each planted
+    fault (a context manager), which must land above the limit."""
+    cfg = ARCHS[arch].reduced(dtype="float32")
     cpu, batch = round_setup(cfg, 64, "cpu")
     cpu.init(seed=0)
     p_cpu = cpu.params
@@ -1781,28 +1868,188 @@ def phase_round_parity():
     if QUANTIZE.launches == n0:
         raise AssertionError("the card's round did not launch the kernel")
     sound_params = tree_leaves(card.params)
-    with pod_counted_twice():
-        timed_round(card, p_card, batch)
-    faulted_params = tree_leaves(card.params)
+    planted = {}
+    for name, fault in faults:
+        with fault():
+            timed_round(card, p_card, batch)
+        planted[name] = tree_leaves(card.params)
     cpu_rec = cpu.train_round(batch)
     want = tree_leaves(cpu.params)
     share, worst, ok = int8_limit(sound_params, want, steps)
-    f_share, f_worst, f_ok = int8_limit(faulted_params, want, steps)
-    row = {"loss_card": card_rec["loss"], "loss_cpu": cpu_rec["loss"],
-           "share_over_1e-5": share, "worst_in_steps": worst,
-           "planted_share_over_1e-5": f_share,
-           "planted_worst_in_steps": f_worst,
+    row = {"arch": arch, "loss_card": card_rec["loss"],
+           "loss_cpu": cpu_rec["loss"], "share_over_1e-5": share,
+           "worst_in_steps": worst,
            "limit": "share <= 1e-3 and worst <= 1 step"}
-    log("round_parity " + json.dumps(row))
+    inside = []
+    for name, got in planted.items():
+        f_share, f_worst, f_ok = int8_limit(got, want, steps)
+        row[name] = {"share_over_1e-5": f_share, "worst_in_steps": f_worst}
+        if f_ok:
+            inside.append(name)
+    log(f"{label} " + json.dumps(row))
     if not ok:
         raise AssertionError(f"card vs CPU int8 round outside its limit: "
                              f"{row}")
-    if f_ok:
-        raise AssertionError(f"a pod counted twice stayed inside the "
-                             f"limit: {row}")
+    if inside:
+        raise AssertionError(f"planted faults stayed inside the limit: "
+                             f"{inside}: {row}")
     if not abs(card_rec["loss"] - cpu_rec["loss"]) < 1e-5:
         raise AssertionError(f"card vs CPU loss: {row}")
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the MoE / MLA fused round (deepseek-v2-lite-16b)
+# ---------------------------------------------------------------------------
+
+#: the dense first layer and five MoE layers: training at full depth
+#: (about 286 GB at the llama round's bytes a param) waits for
+#: distribution (ROADMAP A.8)
+MOE_ROUND_LAYERS = 6
+
+
+@contextlib.contextmanager
+def round_watch(plant=None):
+    """Each MoE layer's forward in a round (a recompute under remat
+    takes its forward's experts, ``moe.Route``, and is not counted): the
+    router's smallest top-k margin, ep's capacity and dropped
+    assignments (tensors, read after the run).  ``plant(i, idx)`` may
+    replace the experts of the i-th forward of a layer."""
+    choose, route = moe_mod.Route.choose, moe_mod.ep_route
+    rec = {"forwards": 0, "margin": [], "cap": [], "dropped": []}
+    state = {"forward": False}
+
+    def watched_choose(self, idx, probs):
+        state["forward"] = self.idx is None
+        if state["forward"]:
+            k = idx.shape[1]
+            top = torch.topk(probs.detach(), k + 1, dim=-1).values
+            rec["margin"].append((top[:, k - 1] - top[:, k]).min())
+            if plant is not None:
+                idx = plant(rec["forwards"], idx)
+            rec["forwards"] += 1
+        return choose(self, idx, probs)
+
+    def watched_route(moe, gates, idx):
+        sel, sel_gate, rows = route(moe, gates, idx)
+        if state["forward"]:
+            rec["cap"].append(sel.shape[1])
+            rec["dropped"].append((rows < 0).sum())
+        return sel, sel_gate, rows
+
+    moe_mod.Route.choose, moe_mod.ep_route = watched_choose, watched_route
+    try:
+        yield rec
+    finally:
+        moe_mod.Route.choose, moe_mod.ep_route = choose, route
+
+
+def experts_rolled(cfg):
+    """A planted fault for the MoE round check: every token's experts
+    rolled by one in the first MoE layer of each forward."""
+    n_moe = sum(cfg.moe_layer_flags())
+
+    def roll_first(i, idx):
+        return (idx + 1) % cfg.moe.num_experts if i % n_moe == 0 else idx
+
+    @contextlib.contextmanager
+    def fault():
+        with round_watch(roll_first) as rec:
+            yield
+        if not rec["forwards"]:
+            raise AssertionError("the planted fault never fired")
+    return fault
+
+
+def phase_moe_round():
+    """deepseek-v2-lite-16b at full width and 6 layers (bf16, random
+    params from seed 0) through phase 11's round: the JAX package's
+    ``build_train_step`` options (ep, ``chunked_sp``, remat), a 2-pod
+    mesh, each pod 4 sequences of 512 tokens in 2 microbatches.  One int8
+    round (launch counts zeroed just before and read just after; each
+    MoE layer watched), one ``compress="none"`` round from the same
+    params (the int8 params within 5 % relative of these), a warm int8
+    round (bit-equal to the first), one under torch.profiler for the
+    device split; then the quantize kernels at the largest expert leaf
+    and the reduced round on the card against the CPU with two planted
+    faults."""
+    cfg = dataclasses.replace(ARCHS[MOE_ARCH], num_layers=MOE_ROUND_LAYERS)
+    n_moe = sum(cfg.moe_layer_flags())
+    t8, batch = round_setup(cfg, FUSED_SEQ, None, "int8")
+    tn, _ = round_setup(cfg, FUSED_SEQ, None, "none")
+    t0 = time.perf_counter()
+    t8.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p0 = t8.params
+    leaves = tree_leaves(p0)
+    n_params = sum(l.numel() for l in leaves)
+    if n_params != cfg.param_count() + mla_norm_params(cfg):
+        raise AssertionError(
+            f"{MOE_ARCH} ({MOE_ROUND_LAYERS} layers): {n_params} params, "
+            f"the config counts {cfg.param_count()} + "
+            f"{mla_norm_params(cfg)} MLA norm scales")
+    with round_watch() as watch8:
+        rec8, cold_s, launches8, peak8 = driven_round(t8, p0, batch)
+    p8 = t8.params
+    recn, none_s, launchesn, peakn = driven_round(tn, p0, batch)
+    pn = tn.params
+    tn.params = None
+    rel = check_int8_round(MOE_ARCH, leaves, (rec8, p8, launches8),
+                           (recn, pn, launchesn))
+    del pn
+    warm8, warm_s, _, _ = driven_round(t8, p0, batch)
+    twice = bits_equal_trees(p8, t8.params)
+    del p8
+    t8.params = None
+    if not twice:
+        raise AssertionError("two MoE int8 rounds from the same params "
+                             "differ")
+    split = moe_split(lambda: timed_round(t8, p0, batch))
+    dropped = drop_counts(watch8["dropped"], n_moe)
+    row = {
+        "arch": MOE_ARCH, "layers": MOE_ROUND_LAYERS, "moe_layers": n_moe,
+        "params": n_params, "config_param_count": cfg.param_count(),
+        "leaves": len(leaves), "dtype": cfg.dtype, "pods": 2,
+        "microbatches_per_pod": 2, "seqs_per_pod": 4, "seq_len": FUSED_SEQ,
+        "opts": {k: getattr(t8.model.opts, k) for k in (
+            "attn_impl", "moe_impl", "remat", "loss_chunk", "block_kv")},
+        "init_s": init_s, "int8_cold_s": cold_s, "int8_warm_s": warm_s,
+        "none_s": none_s, "peak_mem_gb_int8": peak8 / 1e9,
+        "peak_mem_gb_none": peakn / 1e9, "int8": rec8, "none": recn,
+        "int8_warm": warm8, "int8_vs_none_rel": rel,
+        "two_int8_rounds_bit_equal": twice,
+        "ep_cap": sorted(set(watch8["cap"])),
+        "ep_forwards": watch8["forwards"],
+        "ep_assignments": batch["tokens"].size * cfg.moe.top_k * n_moe,
+        "ep_dropped_per_layer": dropped[0], "ep_dropped": dropped[1],
+        "router_min_margin": min_margin(watch8),
+        "launches_int8": launches8, "launches_none": launchesn}
+    log("moe_round " + json.dumps(row))
+    log("moe_round_device " + json.dumps(split))
+    del p0, leaves, watch8
+    t8.params = t8.server_state = tn.server_state = None
+    torch.cuda.empty_cache()
+
+    # the quantize kernels at the largest leaf: the experts' gate delta
+    # of the round, (moe layers, E, d, f) fp32, its last axis padded to
+    # whole blocks of 256 as fake_quantize_tree pads it
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(n_moe, cfg.moe.num_experts, cfg.d_model,
+                    cfg.moe.expert_d_ff, generator=g, device="cuda") * 1e-3
+    last = x.shape[-1]
+    x = F.pad(x, (0, -(-last // 256) * 256 - last))
+    quant = quant_case("moe_expert_gate_delta", x.reshape(-1), 256)
+    quant["shape"] = list(x.shape)
+    log("quant_case " + json.dumps(quant))
+    del x
+    torch.cuda.empty_cache()
+    parity = phase_round_parity(
+        MOE_ARCH, (("pod_counted_twice", pod_counted_twice),
+                   ("experts_rolled", experts_rolled(
+                       ARCHS[MOE_ARCH].reduced()))),
+        label="moe_round_parity")
+    return row, split, parity
 
 
 # ---------------------------------------------------------------------------
@@ -2435,6 +2682,10 @@ def main() -> int:
     fused_row, fused_dev = phase_fused_round()
     phase_round_parity()
 
+    # phase 19: the MoE / MLA fused round, deepseek-v2-lite-16b
+    moe_round, moe_round_dev, _ = phase_moe_round()
+    launches19 = moe_round["launches_int8"]
+
     # phases 13-15: phase 5's workload on the shmproc and multi-node
     # runtimes and through serve mode (the kernels were built in phase
     # 2, before any daemon starts)
@@ -2501,7 +2752,8 @@ def main() -> int:
                 "phase 15: serve round, inproc":
                     ingest_row["launches"][kern.name],
                 "phase 16: service, two jobs, inproc":
-                    svc_row["launches"][kern.name]}})
+                    svc_row["launches"][kern.name],
+                "phase 19: MoE fused round": launches19[kern.name]}})
     kernel_ms = sum(launches[o["name"]] * o["ms"] for o in out) / 1e3
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/"
     out.append({
@@ -2509,6 +2761,7 @@ def main() -> int:
         "source": flash_src + "flash_attention_sm90.cu",
         "replaces": FLASH_WGMMA.replaces, "launches": flash_launches,
         "launches_fused_round": fused_row["launches_int8"][FLASH_WGMMA.name],
+        "launches_moe_round": launches19[FLASH_WGMMA.name],
         **{k: flash_main[k] for k in (
             "max_abs_err", "ms", "previous_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape", "dtype")}})
@@ -2522,7 +2775,8 @@ def main() -> int:
                 "phase 8: fp32 serve loop":
                     tf32_lm_launches * int(kern is FLASH_TF32X3),
                 "phase 11: fused round":
-                    fused_row["launches_int8"][kern.name]}
+                    fused_row["launches_int8"][kern.name],
+                "phase 19: MoE fused round": launches19[kern.name]}
 
     tf32_row = flash_rows["path", "float32"]
     out.append({
@@ -2556,6 +2810,11 @@ def main() -> int:
             "source": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
             "replaces": kern.replaces,
             "launches": fused_row["launches_int8"][kern.name],
+            "launches_by_path": {
+                "phase 11: fused round, llama3.2-3b":
+                    fused_row["launches_int8"][kern.name],
+                f"phase 19: MoE fused round, {MOE_ARCH} "
+                f"({MOE_ROUND_LAYERS} layers)": launches19[kern.name]},
             **{k: r[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape", "rows")}})
@@ -2578,6 +2837,9 @@ def main() -> int:
         "fused_round_warm_s": fused_row["int8_warm_s"],
         "fused_round_quant_ms": fused_dev["quantize_ms"]
         + fused_dev["dequantize_ms"],
+        "moe_round_warm_s": moe_round["int8_warm_s"],
+        "moe_round_peak_mem_gb": moe_round["peak_mem_gb_int8"],
+        "moe_round_idle_share": moe_round_dev["idle_share"],
         "shmproc_warm_wall_s": shm_row["warm_wall_s"],
         "shmproc_fork_cold_s": shm_row["stats"]["cold_latency_s"],
         "shmproc_fork_warm_s": shm_row["stats"]["warm_latency_s"],

@@ -3,16 +3,17 @@
 The two packages share one parameter-tree structure and one leaf order.
 ResNet trees differ in one layout: the JAX package keeps conv kernels
 HWIO, the port OIHW.  A 4-D leaf is permuted only under a conv
-kernel's key (``CONV_KEYS``); any other 4-D leaf is refused, so a tree
-of another model is never permuted by accident.  LM trees keep every
-leaf's layout and dtype and go through ``lm_params_from_jax`` /
-``lm_params_to_jax``: the stacked experts of an MoE layer
-(``(layers, E, d, f)``), its fp32 router and MLA's latent projections
+kernel's key (``CONV_KEYS``); every other leaf keeps its layout, the
+stacked experts of an MoE layer (``(layers, E, d, f)``) included.
+``params_from_jax`` / ``params_to_jax``, the ResNet entry points,
+refuse a 4-D leaf under any other key, so a tree of another model is
+never taken for a ResNet.  LM trees keep every leaf's layout and dtype
+and go through ``lm_params_from_jax`` / ``lm_params_to_jax``: the
+stacked experts, the fp32 router and MLA's latent projections
 included.  Flat vectors keep the JAX layout on the wire
 (``flatten_jax_layout``), so an update from either package folds into
-the other; ``conv_flags`` there still refuses a 4-D leaf that is not a
-conv kernel, so an MoE tree does not cross the flat wire path yet
-(ROADMAP A.6: the MoE fused round).
+the other, an MoE update among them; checkpoints store the same layout
+(``checkpoint/checkpoint.py``).
 
 bf16 leaves: the JAX side hands them over as ``ml_dtypes.bfloat16``
 numpy arrays, which ``torch.from_numpy`` refuses and the port does not
@@ -35,15 +36,22 @@ CONV_KEYS = frozenset({"stem", "conv1", "conv2", "conv3", "proj"})
 
 
 def conv_flags(tree: Any) -> List[bool]:
-    """Per leaf, in JAX order: is it a conv kernel (HWIO <-> OIHW)?"""
-    flags = []
-    for path, leaf in named_leaves(tree):
-        conv = len(leaf.shape) == 4
-        if conv and path.rsplit(".", 1)[-1] not in CONV_KEYS:
+    """Per leaf, in JAX order: is it a conv kernel (HWIO <-> OIHW)?  A
+    4-D leaf under a ``CONV_KEYS`` key; any other leaf keeps its
+    layout."""
+    return [len(leaf.shape) == 4 and path.rsplit(".", 1)[-1] in CONV_KEYS
+            for path, leaf in named_leaves(tree)]
+
+
+def _resnet_conv_flags(tree: Any) -> List[bool]:
+    """``conv_flags`` of a ResNet tree: a 4-D leaf that is not a conv
+    kernel is refused."""
+    flags = conv_flags(tree)
+    for (path, leaf), conv in zip(named_leaves(tree), flags):
+        if len(leaf.shape) == 4 and not conv:
             raise ValueError(
                 f"{path}: a 4-D leaf that is not a ResNet conv kernel; LM "
                 "trees go through lm_params_from_jax / lm_params_to_jax")
-        flags.append(conv)
     return flags
 
 
@@ -51,7 +59,7 @@ def _map_leaves(fn, tree: Any) -> Any:
     """``fn(leaf, conv)`` over the leaves of a ResNet tree."""
     leaves, treedef = tree_flatten(tree)
     return tree_unflatten(
-        treedef, [fn(l, c) for l, c in zip(leaves, conv_flags(tree))])
+        treedef, [fn(l, c) for l, c in zip(leaves, _resnet_conv_flags(tree))])
 
 
 def leaf_to_jax(t: torch.Tensor, conv: bool) -> torch.Tensor:

@@ -140,10 +140,9 @@ def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
                      opts: Optional[ModelOptions] = None):
     """-> (train_step(params, server_state, batch) -> (params', state',
     metrics), model).  ``mesh`` is the port's logical mesh
-    (``launch/mesh.py``).  MoE configs serve but do not train yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: the MoE fused round is not "
-                                  "ported yet (ROADMAP A.6)")
+    (``launch/mesh.py``).  An MoE config trains with ``moe_impl="ep"``
+    by default, its capacity taken per microbatch as the JAX package's
+    per-pod body takes it."""
     dp = mesh_dp_axes(mesh)
     pod = mesh_pod_axis(mesh)
     opts = opts or ModelOptions(

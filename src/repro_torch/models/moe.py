@@ -22,11 +22,25 @@ JAX package's scatter-add in its update order, without ``index_add_``'s
 atomics on the card: two runs are bit-equal, and dense and ep without
 drops agree bit for bit where the experts' rows do.
 
+Training takes autograd's gradients of these forwards, which are the
+JAX package's ``jax.grad`` of ``_ep_local``: the router's through the
+stable sort reach the same probabilities as through ``jax.lax.top_k``;
+the load-balance loss's only through ``probs.mean`` (the counts are
+integers, as the JAX ``.at[].add(1.0)`` counts take no gradient); a
+capacity slot that holds no routed token, and an assignment past
+capacity, carry gate 0 or no row, so they give exactly zero gradient
+to the experts and the gates, as the JAX ``sel_valid`` mask does.  The
+backwards of the gather and of the combine accumulate through
+``index_put_``, which the card runs as a sort and ordered sums, not
+atomics: two backward passes there are bit-equal
+(``tests/test_torch_gpu.py``).  Under ``remat`` a layer is recomputed in the backward; its
+:class:`Route` hands the recompute the experts its forward chose.
+
 Shared experts (DeepSeek / Kimi) are dense FFNs applied to every token.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,9 +78,30 @@ def router_probs(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
     # top-k as a stable descending sort: equal probabilities in ascending
     # expert order, as jax.lax.top_k gives them (torch.topk keeps no order)
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = gates[:, :top_k], idx[:, :top_k]
-    gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
-    return gates, idx, probs
+    return _renormalised(gates[:, :top_k]), idx[:, :top_k], probs
+
+
+def _renormalised(gates: torch.Tensor) -> torch.Tensor:
+    return gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
+
+
+class Route:
+    """The experts one MoE layer's forward chose, for its recompute
+    under ``remat``: the first pass keeps the router's choice, and every
+    pass takes the kept experts with the gates gathered from its own
+    probabilities (the same values as the router's, and the same ops in
+    both passes, as the checkpoint requires), so the backward
+    differentiates the routing the forward ran even where a recomputed
+    probability would tie at the top-k boundary."""
+
+    def __init__(self):
+        self.idx = None
+
+    def choose(self, idx, probs):
+        """-> (gates, idx) for this pass of the layer."""
+        if self.idx is None:
+            self.idx = idx
+        return _renormalised(probs.gather(1, self.idx)), self.idx
 
 
 def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
@@ -166,13 +201,17 @@ def _moe_ep(moe: MoEConfig, experts: dict, x2: torch.Tensor, gates,
 
 
 def moe_block(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
-              impl: str = "dense", mesh=None,
-              model_axis: str = "model") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (output (B, S, D), aux load-balance loss scalar)."""
+              impl: str = "dense", mesh=None, model_axis: str = "model",
+              route: Optional[Route] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (output (B, S, D), aux load-balance loss scalar).
+    ``route``: the layer's :class:`Route` when it runs under remat."""
     moe = cfg.moe
     B, S, D = x.shape
     x2 = x.reshape(B * S, D)
     gates, idx, probs = router_probs(params["router"], x2, moe.top_k)
+    if route is not None:
+        gates, idx = route.choose(idx, probs)
     aux = load_balance_loss(probs, idx, moe.num_experts)
     if impl == "dense":
         y = _moe_dense(moe, params["experts"], x2, gates, idx)

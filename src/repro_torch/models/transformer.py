@@ -11,10 +11,12 @@ leaf per segment (its backward stacks the layers' gradients once; taking
 ``a[i]`` per layer would allocate a zero tensor the size of the whole
 stack in every layer's backward).  ``remat=True`` runs each layer under
 ``torch.utils.checkpoint``, as the JAX package wraps the scan body in
-``jax.checkpoint``.  MLA configs (``cfg.mla``) take ``models/mla.py``'s
-attention and latent ring cache; MoE layers ``models/moe.py``'s block,
-whose load-balance loss ``apply_stack`` sums over the layers; the
-leading dense layers of an MoE config take an FFN of ``dense_d_ff``.
+``jax.checkpoint``; an MoE layer's recompute there routes each token
+to the experts its forward chose.  MLA configs (``cfg.mla``) take
+``models/mla.py``'s attention and latent ring cache; MoE layers
+``models/moe.py``'s block, whose load-balance loss ``apply_stack`` sums
+over the layers; the leading dense layers of an MoE config take an FFN
+of ``dense_d_ff``.
 SSM, hybrid and cross-attention blocks are refused by name.
 
 Param tree:
@@ -180,18 +182,20 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, specs: List[LayerSpec],
 
 
 def _feed_forward(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
-                  params: dict, h2: torch.Tensor):
+                  params: dict, h2: torch.Tensor, route=None):
     """-> (y, aux): the layer's MoE block, or its dense FFN (aux None)."""
     if spec.moe:
         return moe_mod.moe_block(cfg, params["moe"], h2, impl=opts.moe_impl,
-                                 mesh=opts.mesh, model_axis=opts.model_axis)
+                                 mesh=opts.mesh, model_axis=opts.model_axis,
+                                 route=route)
     return ffn(params["ffn"], h2), None
 
 
 def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
                  params: dict, x: torch.Tensor, positions: torch.Tensor,
-                 collect_cache: bool):
-    """-> (x, aux or None, cache_or_None)."""
+                 collect_cache: bool, route=None):
+    """-> (x, aux or None, cache_or_None).  ``route``: an MoE layer's
+    ``moe.Route`` under remat."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         a = mla_mod.mla_attention(cfg, params["attn"], h, positions,
@@ -215,7 +219,7 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
         cache_out = _attn_cache_from_prefill(cfg, spec, kv, cap)
     x = x + a
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    y, aux = _feed_forward(cfg, spec, opts, params, h2)
+    y, aux = _feed_forward(cfg, spec, opts, params, h2, route)
     return x + y, aux, cache_out
 
 
@@ -288,14 +292,17 @@ def apply_stack(cfg: ArchConfig, seg_params: List[Any],
     caches = [] if collect_cache else None
     for sp, (count, spec) in zip(seg_params, segment_specs(specs)):
 
-        def body(layer_params, xx, spec=spec):
+        def body(layer_params, xx, route=None, spec=spec):
             return _apply_block(cfg, spec, opts, layer_params, xx, positions,
-                                collect_cache)
+                                collect_cache, route)
 
         seg_cache = []
         for layer_params in _layers(sp):
             if opts.remat:
-                x, aux, cache = checkpoint(body, layer_params, x,
+                # the recompute in the backward takes the experts that
+                # the forward chose (moe.Route)
+                route = moe_mod.Route() if spec.moe else None
+                x, aux, cache = checkpoint(body, layer_params, x, route,
                                            use_reentrant=False)
             else:
                 x, aux, cache = body(layer_params, x)

@@ -1,6 +1,7 @@
 """The CUDA kernels (fedavg, the three flash-attention forwards, int8
-quantize and dequantize) against their plain PyTorch versions, and the
-fused int8 round against the CPU, on the card.  Marked ``gpu``: they skip on a host
+quantize and dequantize) against their plain PyTorch versions, the MoE
+ep block forward and backward, and the fused int8 round against the
+CPU, on the card.  Marked ``gpu``: they skip on a host
 without a CUDA device or ``nvcc``.  Run them on the card with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
@@ -223,6 +224,55 @@ def test_moe_ep_on_the_card_is_bit_equal_twice_and_matches_the_cpu(card,
     scale = 1.0 if dtype == "float32" else float(want.float().abs().max())
     torch.testing.assert_close(runs[0].cpu().float(), want.float(), rtol=tol,
                                atol=tol * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ep_backward_on_the_card_is_bit_equal_twice_and_matches_the_cpu(
+        card, dtype):
+    """The ep block's backward (the forward test's block and tokens, so
+    experts overflow and drop): the gradients of the output and of the
+    load-balance loss for the params and the input, two passes on the
+    card bit-equal, and against the CPU: rtol 1e-4 (fp32) or 2e-2 (bf16,
+    where gradients round at other places on the two devices), with an
+    absolute part of 1e-5 (fp32) or 2e-2 (bf16) of each gradient's
+    largest value.  A weight's gradient sums up to 320 capacity rows of
+    terms that cancel, so its error is that of the terms, not of the
+    small sum (fp32: up to 2.3e-5 on sums about 1e-3)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wire = WIRE[dtype]
+    cfg = ARCHS["deepseek-v2-lite-16b"].reduced(dtype=dtype)
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg, wire)
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn(4, 256, cfg.d_model, generator=g)
+         + torch.randn(cfg.d_model, generator=g)).to(wire)
+    ct = torch.randn(x.shape, generator=g).to(wire)
+    mesh = make_host_mesh()
+
+    def grads(device):
+        leaves, treedef = tree_flatten(params)
+        live = [l.to(device).requires_grad_() for l in leaves]
+        xx = x.to(device).requires_grad_()
+        y, aux = moe.moe_block(cfg, tree_unflatten(treedef, live), xx,
+                               impl="ep", mesh=mesh)
+        out = torch.autograd.grad((y * ct.to(device)).float().sum() + aux,
+                                  live + [xx])
+        return [t.detach() for t in out]
+
+    runs = [grads(card) for _ in range(2)]
+    for a, b in zip(*runs):
+        _equal_bits(a, b)
+    for got, want in zip(runs[0], grads(torch.device("cpu"))):
+        got, want = got.cpu().float(), want.float()
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        part = 1e-5 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(got, want, rtol=tol,
+                                   atol=part * float(want.abs().max()))
 
 
 def _equal_bits(a, b):

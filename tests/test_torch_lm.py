@@ -33,6 +33,7 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.convert import (lm_params_from_jax, lm_params_to_jax,
                                  params_from_jax)
 from repro_torch.fl.round import AggregationConfig, build_train_step
+from repro_torch.fl.server import init_server_state
 from repro_torch.launch.mesh import make_debug_mesh, make_host_mesh
 from repro_torch.models import ModelOptions, build_model
 from repro_torch.models import attention as tattn
@@ -311,14 +312,19 @@ def test_training_moe_and_cross_attention_are_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         model.prefill(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
                                "frontend": torch.zeros(1, 2, 64)})
-    # MoE blocks serve: a dense arch given an MoE config builds and
-    # prefills; its fused round is refused
+    # MoE blocks serve and, since the MoE fused round is ported, train:
+    # a dense arch given an MoE config builds, prefills and takes a step
     moe = cfg.__class__(**{**cfg.__dict__, "moe": MoEConfig(
         num_experts=4, top_k=2, expert_d_ff=32)})
     _builds_and_prefills(moe)
-    with pytest.raises(NotImplementedError, match="MoE fused round.*A.6"):
-        build_train_step(moe, make_debug_mesh((1, 1), ("data", "model")),
-                         AggregationConfig())
+    step, moe_model = build_train_step(
+        moe, make_debug_mesh((1, 1), ("data", "model")),
+        AggregationConfig(num_microbatches=1))
+    assert moe_model.opts.moe_impl == "ep"
+    moe_params = moe_model.init(0, device="cpu")
+    _, _, metrics = step(moe_params, init_server_state("fedavg", moe_params),
+                         {"tokens": toks, "labels": toks})
+    assert bool(torch.isfinite(metrics["loss"]))
     layer = tattn.init_attention(torch.Generator().manual_seed(0), cfg,
                                  torch.float32)
     x = torch.zeros(1, 4, 64)

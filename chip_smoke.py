@@ -38,9 +38,10 @@ on any fault; it imports nothing of the JAX package.  Phases:
    CUDA-core one, and each call must move that kernel's count.  At the
    serve path's shape (B = 4, S = 2000, 24 query heads over 8 KV heads,
    D = 128) in bf16, fp16 and fp32; at gemma3's (K 4, G 2, D 256,
-   window 1024) and h2o-danube-3-4b's (K 8, G 4, D 120, window 4096) in
-   bf16, and h2o-danube-3-4b's again on pointers off 16 bytes (the
-   CUDA-core kernel's inputs); and at the four shapes of the JAX
+   window 1024), h2o-danube-3-4b's (K 8, G 4, D 120, window 4096) and
+   hymba-1.5b's (K 5, G 5, D 64, window 1024 and global) in bf16, and
+   h2o-danube-3-4b's again on pointers off 16 bytes (the CUDA-core
+   kernel's inputs); and at the four shapes of the JAX
    package's kernel test in all three.  One ``flash_case`` JSON line
    each, with the library call (``scaled_dot_product_attention``) as the
    yardstick, the bound at the bf16 peak or, in fp32, at three TF32
@@ -211,10 +212,34 @@ on any fault; it imports nothing of the JAX package.  Phases:
    the CPU within the two-part limit, and above it with one pod counted
    twice and with every token's experts rolled by one in the first MoE
    layer (``moe_round_parity``).
+20. SSM / hybrid serve, run after phase 19 (its model is freed):
+   falcon-mamba-7b (64 Mamba layers) and hymba-1.5b (32 hybrid layers:
+   attention with a window of 1024 but in layers 0, 15 and 31, beside an
+   SSM branch), each at full width and depth in bf16 with random params
+   from seed 0 drawn on the card and ``attn_impl="pallas"``: the tree's
+   params against ``param_count()`` (plus hymba's branch norms, which it
+   leaves out), the init's seconds and peak; phase 7's prompts (4 x 2000
+   tokens) and 32 greedy decode steps with every kernel count zeroed
+   just before and read just after (falcon-mamba-7b launches none,
+   hymba-1.5b the wgmma flash kernel once a layer), finite logits; cold
+   and warm prefill, decode p50 / p99, the decode state's bytes, the
+   peak; two warm prefills bit-equal; a warm prefill and a decode step
+   split into the flash kernel, the scan, the causal conv, matrix
+   products and the rest (``ssm_split``) with the idle share, the step
+   beside the time to read every weight once; hymba's layer 0 (global)
+   and layer 1 (window 1024) q, k and v captured and the kernel held
+   against its plain version on them.  Then both reduced in fp32
+   (150-token prompts): decode against the full forward on the card
+   (2e-3), the serve loop on the card against the CPU within
+   ``LM_PARITY_ATOL`` with the same greedy tokens, and planted faults
+   above it (layer 0's SSM state zeroed after prefill; hymba's first
+   layer's KV heads rolled), within it of the same fault on the CPU.
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
-phase 14 in netd and at the controller, phase 15, phase 16, phase 19;
-each quantize kernel its launches in phases 11 and 19.
+phase 14 in netd and at the controller, phase 15, phase 16, phase 19,
+phase 20; each flash kernel its launches on every path that runs
+attention, phase 20's two models included; each quantize kernel its
+launches in phases 11, 19 and 20.
 """
 from __future__ import annotations
 
@@ -278,6 +303,7 @@ from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.resnet import build_resnet  # noqa: E402
 from repro_torch.runtime import (ClientRuntime, FusedFLTrainer,  # noqa: E402
                                  PartialReady, UpdateArrived, WorkerCrashed)
@@ -809,6 +835,8 @@ def phase_flash():
              ("gemma3", 4, 2000, 4, 2, 256, 1024, bf16, 0),
              ("h2o_danube3", 4, 2000, 8, 4, 120, 4096, bf16, 0),
              ("h2o_danube3_unaligned", 4, 2000, 8, 4, 120, 4096, bf16, 1),
+             ("hymba", 4, 2000, 5, 5, 64, 1024, bf16, 0),
+             ("hymba_global", 4, 2000, 5, 5, 64, GLOBAL, bf16, 0),
              ("test0", 1, 128, 1, 1, 32, GLOBAL, every, 0),
              ("test1", 2, 256, 2, 3, 64, GLOBAL, every, 0),
              ("test2", 1, 256, 4, 1, 64, 64, every, 0),
@@ -1223,26 +1251,32 @@ def labelled(module, names):
             setattr(module, n, fn)
 
 
-def moe_split(fn):
-    """``fn()`` once under torch.profiler: device ms of the attention
-    core (the blockwise scan, ``flash_vjp.*``; the absorbed scores,
-    softmax and latent output of a decode step), of the experts'
-    products, of the MoE routing, gather and scatter (the block's
-    dispatch but the experts), of the quantize and dequantize kernels,
-    of the other matrix products (projections, shared experts,
-    unembedding) and of the rest; kernel count, wall time and the
-    device's idle share.  Each kernel is counted once, under the
-    innermost of those ranges that launched it; a backward kernel under
-    the range of the forward op it differentiates (the autograd node's
-    sequence number and forward thread); a kernel launched outside any
-    op (the ctypes launches) by its name."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma")
 
-    ranges = {"flash_vjp.forward": "attention_ms",
-              "flash_vjp.backward": "attention_ms",
-              "mla.attend": "attention_ms", "moe.experts": "experts_ms",
-              "moe.route": "moe_dispatch_ms",
-              "moe.dispatch": "moe_dispatch_ms"}
+
+def is_gemm(name: str) -> bool:
+    name = name.lower()
+    return any(t in name for t in GEMM_NAMES)
+
+
+def range_split(fn, keys, patches, ranges, override, fallback):
+    """``fn()`` once under torch.profiler, its device ms split into
+    ``keys``.  ``patches``: (module or class, {function: range label})
+    pairs whose functions run inside ``torch.profiler`` ranges of those
+    labels; ``ranges``: range label -> key.  Each device event (a range's
+    own span on the device excepted) is counted once: under
+    ``override(name)`` where that names a key, else under the innermost
+    of the ranges around the CUDA call that launched it (the host event
+    of the same correlation id; a backward kernel under the range of the
+    forward op it differentiates: the autograd node's sequence number and
+    forward thread), else under ``fallback(name)`` (so is a kernel whose
+    call is not in the trace, ``unlinked_kernels``).  The events' own
+    kernel lists are not used: the profiler hands a kernel to every host
+    event that shares its op's id, CUPTI's "Command Buffer Full" among
+    them, which counted the kernels of a host that runs ahead twice.
+    -> the split with the kernel count, wall time, the device's idle
+    share and the top kernels."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
 
     def labelled_range(e):
         while e is not None and e.name not in ranges:
@@ -1250,64 +1284,80 @@ def moe_split(fn):
         return ranges[e.name] if e is not None else None
 
     torch.cuda.synchronize()
-    with labelled(moe_mod, {"router_probs": "moe.route",
-                            "_moe_ep": "moe.dispatch",
-                            "_moe_dense": "moe.dispatch",
-                            "_experts": "moe.experts"}), \
-            labelled(moe_mod.Route, {"choose": "moe.route"}), \
-            labelled(mla_mod, {"_attend_latent": "mla.attend"}), \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
+    with contextlib.ExitStack() as stack:
+        for module, names in patches:
+            stack.enter_context(labelled(module, names))
+        prof = stack.enter_context(profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
     forward = {}        # (thread, sequence number) -> range of the op
+    launches = {}       # correlation id -> the CUDA call on the host
     for e in events:
-        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name.startswith("cu"):
+            launches[e.id] = e
+        elif e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
             where = labelled_range(e)
             if where is not None:
                 forward[e.thread, e.sequence_nr] = where
-    def by_name(name):
-        name = name.lower()
-        if "quantize_kernel" in name:
-            return "quantize_ms"
-        gemm = any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma"))
-        return "matmul_ms" if gemm else "other_ms"
-
-    split = {"attention_ms": 0.0, "experts_ms": 0.0, "moe_dispatch_ms": 0.0,
-             "quantize_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
-    # every device event counts once: under the op that launched it, or
-    # (a kernel launched outside any op, as the ctypes launches are) by
-    # its name
-    unplaced, kernels = collections.Counter(), 0
-    for e in events:
+    split = dict.fromkeys(keys, 0.0)
+    by_name, kernels, unlinked = collections.Counter(), 0, 0
+    for d in events:
         # a range's span on the device's timeline is no device work
-        if e.device_type == DeviceType.CUDA and not (
-                getattr(e, "is_user_annotation", False) or e.name in ranges):
-            unplaced[e.name] += e.time_range.elapsed_us()
-            kernels += 1
-    top = [(us / 1e3, name[:80]) for name, us in unplaced.most_common(8)]
-    for e in events:
-        for k in e.kernels:
-            where = labelled_range(e)
-            p = e
-            while where is None and p is not None:
-                if p.name.startswith("autograd::engine::evaluate_function"):
-                    where = forward.get((p.fwd_thread, p.sequence_nr))
-                    break
-                p = p.cpu_parent
-            if where is None or by_name(k.name) == "quantize_ms":
-                where = by_name(k.name)
-            split[where] += k.duration / 1e3
-            unplaced[k.name] -= k.duration
-    for name, us in unplaced.items():
-        split[by_name(name)] += max(us, 0) / 1e3
+        if d.device_type != DeviceType.CUDA or getattr(
+                d, "is_user_annotation", False) or d.name in ranges:
+            continue
+        us = d.time_range.elapsed_us()
+        by_name[d.name] += us
+        kernels += 1
+        call = launches.get(d.id)
+        unlinked += call is None
+        where = override(d.name) or labelled_range(call)
+        p = call
+        while where is None and p is not None:
+            if p.name.startswith("autograd::engine::evaluate_function"):
+                where = forward.get((p.fwd_thread, p.sequence_nr))
+                break
+            p = p.cpu_parent
+        split[where or fallback(d.name)] += us / 1e3
     busy = sum(split.values())
-    split.update(kernels=kernels, wall_ms=wall * 1e3, busy_ms=busy,
+    top = [(us / 1e3, name[:80]) for name, us in by_name.most_common(8)]
+    split.update(kernels=kernels, unlinked_kernels=unlinked,
+                 wall_ms=wall * 1e3, busy_ms=busy,
                  idle_share=1.0 - busy / (wall * 1e3), top=top)
     return split
+
+
+def moe_split(fn):
+    """``fn()`` once under torch.profiler (``range_split``): device ms of
+    the attention core (the blockwise scan, ``flash_vjp.*``; the
+    absorbed scores, softmax and latent output of a decode step), of the
+    experts' products, of the MoE routing, gather and scatter (the
+    block's dispatch but the experts), of the quantize and dequantize
+    kernels, of the other matrix products (projections, shared experts,
+    unembedding) and of the rest; kernel count, wall time and the
+    device's idle share."""
+    ranges = {"flash_vjp.forward": "attention_ms",
+              "flash_vjp.backward": "attention_ms",
+              "mla.attend": "attention_ms", "moe.experts": "experts_ms",
+              "moe.route": "moe_dispatch_ms",
+              "moe.dispatch": "moe_dispatch_ms"}
+    return range_split(
+        fn, ("attention_ms", "experts_ms", "moe_dispatch_ms", "quantize_ms",
+             "matmul_ms", "other_ms"),
+        [(moe_mod, {"router_probs": "moe.route", "_moe_ep": "moe.dispatch",
+                    "_moe_dense": "moe.dispatch", "_experts": "moe.experts"}),
+         (moe_mod.Route, {"choose": "moe.route"}),
+         (mla_mod, {"_attend_latent": "mla.attend"})],
+        ranges,
+        override=lambda n: ("quantize_ms" if "quantize_kernel" in n.lower()
+                            else None),
+        fallback=lambda n: "matmul_ms" if is_gemm(n) else "other_ms")
 
 
 def moe_model(cfg, impl="ep", cap=LM_PROMPT + LM_STEPS + 8, **moe_over):
@@ -2053,6 +2103,265 @@ def phase_moe_round():
 
 
 # ---------------------------------------------------------------------------
+# phase 20: SSM / hybrid serving (falcon-mamba-7b, hymba-1.5b)
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("falcon-mamba-7b", "hymba-1.5b")
+
+
+def branch_norm_params(cfg) -> int:
+    """Params of a hybrid layer's two branch norms, which the tree holds
+    and ``ArchConfig.param_count`` leaves out, as in the JAX package."""
+    return 2 * cfg.d_model * cfg.num_layers if cfg.hybrid_parallel_ssm else 0
+
+
+def ssm_split(fn):
+    """``fn()`` once under torch.profiler (``range_split``): device ms of
+    the flash kernel and of matrix products (by kernel name), of the
+    scan (``ssm_scan_chunked`` in a prefill; ``ssm_decode``, the state
+    update, in a decode step), of the causal conv and of the rest;
+    kernel count, wall time and the device's idle share."""
+    def override(name):
+        if "flash_fwd" in name.lower():
+            return "flash_ms"
+        return "matmul_ms" if is_gemm(name) else None
+
+    return range_split(
+        fn, ("flash_ms", "scan_ms", "conv_ms", "matmul_ms", "other_ms"),
+        [(ssm_mod, {"ssm_scan_chunked": "ssm.scan", "ssm_decode": "ssm.scan",
+                    "_causal_conv": "ssm.conv"})],
+        {"ssm.scan": "scan_ms", "ssm.conv": "conv_ms"},
+        override=override, fallback=lambda name: "other_ms")
+
+
+def ssm_model(cfg, cap=LM_PROMPT + LM_STEPS + 8):
+    return build_model(cfg, ModelOptions(attn_impl="pallas", remat=False,
+                                         prefill_cache_capacity=cap))
+
+
+def ssm_state(caches):
+    """Each segment's SSM decode state: an SSM segment's cache, or a
+    hybrid segment's ``ssm`` entry."""
+    return [c.get("ssm", c) for c in caches]
+
+
+def phase_ssm_cell(arch, copy_bps):
+    """One full-width SSM or hybrid config (bf16, random params from seed
+    0 drawn on the card): phase 7's prompts (4 x 2000 tokens) and 32
+    greedy decode steps with every kernel count zeroed just before and
+    read just after (a hybrid prefill launches the wgmma flash kernel
+    once a layer, an SSM one no kernel); cold and warm prefill, decode
+    p50 / p99, the decode state's bytes, the peak; two warm prefills
+    bit-equal; a warm prefill and a decode step split by ``ssm_split``,
+    the step beside the time to read every weight once; a hybrid's
+    layer 0 (global) and layer 1 (windowed) q, k and v captured and the
+    flash kernel held against its plain version on them.  -> (row,
+    launches, flash rows)."""
+    cfg = ARCHS[arch]
+    model = ssm_model(cfg)
+    cuda = torch.device("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    leaves = tree_leaves(params)
+    n_params = sum(l.numel() for l in leaves)
+    param_bytes = sum(l.numel() * l.element_size() for l in leaves)
+    if n_params != cfg.param_count() + branch_norm_params(cfg):
+        raise AssertionError(
+            f"{arch} has {n_params} params, the config counts "
+            f"{cfg.param_count()} + {branch_norm_params(cfg)} branch norms")
+    if init_peak > INIT_PEAK_LIMIT * param_bytes:
+        raise AssertionError(f"init peaked at {init_peak / 1e9:.2f} GB for "
+                             f"{param_bytes / 1e9:.2f} GB of params")
+    prompts = torch.from_numpy(TokenTaskStream(
+        cfg.vocab_size, LM_PROMPT, seed=1).batch(LM_BATCH)["tokens"]).cuda()
+    captured = {}
+
+    def capture(i, orig, q, k, v, *args, **kw):
+        if i in (0, 1):
+            captured[i] = (q.clone(), k.clone(), v.clone())
+        return orig(q, k, v, *args, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    with flash_calls(capture):
+        for kern in all_kernels():
+            kern.launches = 0
+        logits, toks, prefill_s, lat, caches = serve(model, params, prompts,
+                                                     LM_STEPS, cuda)
+        launches = {kern.name: kern.launches for kern in all_kernels()}
+    peak = torch.cuda.max_memory_allocated()
+    attn_layers = 0 if cfg.attention_free else cfg.num_layers
+    want = {kern.name: attn_layers * int(kern is FLASH_WGMMA)
+            for kern in all_kernels()}
+    if launches != want:
+        raise AssertionError(f"{arch} launched {launches}, not {want}")
+    if tuple(logits.shape) != (LM_BATCH, 1 + LM_STEPS, cfg.vocab_size):
+        raise AssertionError(f"logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: non-finite logits")
+    state = ssm_state(caches)
+    state_bytes = {key: sum(s[key].numel() * s[key].element_size()
+                            for s in state) for key in ("h", "conv")}
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    warm, warm_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm.append(model.prefill(params, {"tokens": prompts}))
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+    warm_s = min(warm_s)
+    twice = bits_equal(warm[0][0], warm[1][0]) and bits_equal_trees(
+        warm[0][1], warm[1][1])
+    del warm
+    if not twice:
+        raise AssertionError(f"{arch}: two warm prefills differ")
+    lat_ms = sorted(x * 1e3 for x in lat)
+    row = {
+        "arch": arch, "params": n_params, "param_bytes": param_bytes,
+        "config_param_count": cfg.param_count(), "dtype": cfg.dtype,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "steps": LM_STEPS,
+        "scan_chunk": ssm_mod.scan_chunk(LM_PROMPT, model.opts.ssm_chunk),
+        "init_s": init_s, "init_peak_gb": init_peak / 1e9,
+        "prefill_cold_ms": prefill_s * 1e3, "prefill_ms": warm_s * 1e3,
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / warm_s,
+        "decode_first_ms": lat[0] * 1e3,
+        "decode_p50_ms": float(np.percentile(lat_ms, 50)),
+        "decode_p99_ms": float(np.percentile(lat_ms, 99)),
+        "decode_tok_s": LM_BATCH * LM_STEPS / sum(lat),
+        "ssm_state_bytes": state_bytes, "cache_bytes": cache_bytes,
+        "peak_mem_gb": peak / 1e9,
+        "launches": {k: n for k, n in launches.items() if n},
+        "two_prefills_bit_equal": twice, "tokens_0": toks[0, :8].tolist()}
+    log("ssm_serve " + json.dumps(row))
+    log("ssm_serve_prefill_device " + json.dumps({"arch": arch, **ssm_split(
+        lambda: model.prefill(params, {"tokens": prompts}))}))
+    tok = toks[:, -1:]
+    split = ssm_split(lambda: model.decode_step(params, tok, caches,
+                                                LM_PROMPT + LM_STEPS))
+    # the least a decode step can take: every weight read once
+    split["weight_read_ms"] = param_bytes / copy_bps * 1e3
+    log("ssm_serve_decode_device " + json.dumps({"arch": arch, **split}))
+    del params, logits, caches, state
+    windows = cfg.layer_windows()
+    rows = [flash_row(f"{arch}_layer{i}", q, k, v, windows[i])
+            for i, (q, k, v) in sorted(captured.items())]
+    for r in rows:
+        log("flash_case " + json.dumps(r))
+    del captured
+    torch.cuda.empty_cache()
+    return row, launches, rows
+
+
+class StateZeroed:
+    """``model`` with layer 0's SSM state ``h`` zeroed after each prefill:
+    a planted fault of the decode state."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def prefill(self, params, batch):
+        logits, caches = self.model.prefill(params, batch)
+        ssm_state(caches)[0]["h"][0].zero_()
+        return logits, caches
+
+    def decode_step(self, *args):
+        return self.model.decode_step(*args)
+
+
+def roll_first_kv(i, orig, q, k, v, *args, **kw):
+    """A planted GQA fault: the first flash call's KV heads one head off."""
+    if i == 0:
+        k, v = k.roll(1, dims=2), v.roll(1, dims=2)
+    return orig(q, k, v, *args, **kw)
+
+
+def phase_ssm_parity(arch):
+    """Reduced ``arch`` in fp32 (150-token prompts): on the card, prefill
+    of S tokens against prefill of S - 1 plus ``decode_step`` (the JAX
+    package's 2e-3); the serve loop on the card against the CPU within
+    ``LM_PARITY_ATOL`` with the same greedy tokens; and the planted
+    faults, layer 0's state zeroed after prefill and, for a hybrid, the
+    first layer's KV heads rolled, each above the limit on the card and
+    within it of the same fault on the CPU."""
+    steps = 8
+    cfg = ARCHS[arch].reduced(dtype="float32")
+    model = ssm_model(cfg, cap=150 + steps + 8)
+    params = model.init(seed=0, device="cpu")
+    prompts = torch.from_numpy(TokenTaskStream(
+        cfg.vocab_size, 150, seed=1).batch(LM_BATCH)["tokens"])
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    p_card = tree_map(lambda t: t.to(cuda), params)
+    full, _ = model.prefill(p_card, {"tokens": prompts.to(cuda)})
+    _, caches = model.prefill(p_card, {"tokens": prompts[:, :-1].to(cuda)})
+    dec, _ = model.decode_step(p_card, prompts[:, -1:].to(cuda), caches,
+                               prompts.shape[1] - 1)
+    torch.cuda.synchronize()
+    check_close(f"{arch} decode_step vs prefill", dec, full, 2e-3)
+    cpu_logits, cpu_toks, *_ = serve(model, params, prompts, steps, cpu)
+    for kern in FA_KERNELS:
+        kern.launches = 0
+    card_logits, card_toks, *_ = serve(model, p_card, prompts.to(cuda),
+                                       steps, cuda)
+    flash = {kern.name: kern.launches for kern in FA_KERNELS}
+    faults = {"state_zeroed": (StateZeroed(model), contextlib.nullcontext)}
+    if cfg.hybrid_parallel_ssm:
+        faults["kv_heads_rolled"] = (model,
+                                     lambda: flash_calls(roll_first_kv))
+    planted = {}
+    for name, (m, ctx) in faults.items():
+        with ctx():
+            bad, _, *_ = serve(m, p_card, prompts.to(cuda), steps, cuda)
+        with ctx():
+            bad_cpu, _, *_ = serve(m, params, prompts, steps, cpu)
+        planted[name] = {
+            "max_abs_diff": float((bad.cpu() - cpu_logits).abs().max()),
+            "card_vs_cpu": float((bad.cpu() - bad_cpu).abs().max())}
+    sound = float((card_logits.cpu() - cpu_logits).abs().max())
+    same_tokens = bool((card_toks.cpu() == cpu_toks).all())
+    log("ssm_parity " + json.dumps({
+        "arch": arch, "decode_vs_prefill_max_abs": float(
+            (dec - full).abs().max()),
+        "max_abs_diff": sound, "atol": LM_PARITY_ATOL,
+        "same_greedy_tokens": same_tokens, "steps": steps,
+        "flash_launches": flash, "planted": planted}))
+    if not same_tokens:
+        raise AssertionError(f"{arch}: card and CPU chose different greedy "
+                             "tokens")
+    if not sound <= LM_PARITY_ATOL:
+        raise AssertionError(f"{arch}: card vs CPU logits {sound:.3e} > "
+                             f"{LM_PARITY_ATOL}")
+    for name, p in planted.items():
+        if not p["card_vs_cpu"] <= LM_PARITY_ATOL:
+            raise AssertionError(f"{arch} with {name}: card vs CPU logits "
+                                 f"{p['card_vs_cpu']:.3e}")
+        if not p["max_abs_diff"] > LM_PARITY_ATOL:
+            raise AssertionError(f"{arch}: {name} moved the logits by "
+                                 f"{p['max_abs_diff']:.3e}, inside "
+                                 f"{LM_PARITY_ATOL}")
+
+
+def phase_ssm_serve(copy_bps):
+    """Phase 20: falcon-mamba-7b, then hymba-1.5b, each at full width and
+    depth, then both reduced against the CPU.  -> {arch: (row,
+    launches)}, the flash rows on hymba's captured inputs."""
+    cells, flash_rows = {}, []
+    for arch in SSM_ARCHS:
+        row, launches, rows = phase_ssm_cell(arch, copy_bps)
+        cells[arch] = (row, launches)
+        flash_rows += rows
+    for arch in SSM_ARCHS:
+        phase_ssm_parity(arch)
+    return cells, flash_rows
+
+
+# ---------------------------------------------------------------------------
 # phases 13-15: the multi-process and multi-node runtimes, serve mode
 # ---------------------------------------------------------------------------
 
@@ -2686,6 +2995,13 @@ def main() -> int:
     moe_round, moe_round_dev, _ = phase_moe_round()
     launches19 = moe_round["launches_int8"]
 
+    # phase 20: SSM / hybrid serving, full-width falcon-mamba-7b and
+    # hymba-1.5b (phase 19's model is freed)
+    ssm_cells, ssm_flash = phase_ssm_serve(copy_bps)
+    launches20 = {name: sum(launches[name] for _, launches in
+                            ssm_cells.values())
+                  for name in ssm_cells[SSM_ARCHS[0]][1]}
+
     # phases 13-15: phase 5's workload on the shmproc and multi-node
     # runtimes and through serve mode (the kernels were built in phase
     # 2, before any daemon starts)
@@ -2753,18 +3069,11 @@ def main() -> int:
                     ingest_row["launches"][kern.name],
                 "phase 16: service, two jobs, inproc":
                     svc_row["launches"][kern.name],
-                "phase 19: MoE fused round": launches19[kern.name]}})
+                "phase 19: MoE fused round": launches19[kern.name],
+                "phase 20: SSM / hybrid serve": launches20[kern.name]}})
     kernel_ms = sum(launches[o["name"]] * o["ms"] for o in out) / 1e3
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/"
-    out.append({
-        "name": FLASH_WGMMA.name, "route": "cuda",
-        "source": flash_src + "flash_attention_sm90.cu",
-        "replaces": FLASH_WGMMA.replaces, "launches": flash_launches,
-        "launches_fused_round": fused_row["launches_int8"][FLASH_WGMMA.name],
-        "launches_moe_round": launches19[FLASH_WGMMA.name],
-        **{k: flash_main[k] for k in (
-            "max_abs_err", "ms", "previous_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "shape", "dtype")}})
+
     def flash_paths(kern):
         """A flash kernel's launches on each path that runs attention."""
         return {"phase 7: bf16 prefill":
@@ -2776,8 +3085,19 @@ def main() -> int:
                     tf32_lm_launches * int(kern is FLASH_TF32X3),
                 "phase 11: fused round":
                     fused_row["launches_int8"][kern.name],
-                "phase 19: MoE fused round": launches19[kern.name]}
+                "phase 19: MoE fused round": launches19[kern.name],
+                **{f"phase 20: {arch} serve": launches[kern.name]
+                   for arch, (_, launches) in ssm_cells.items()}}
 
+    out.append({
+        "name": FLASH_WGMMA.name, "route": "cuda",
+        "source": flash_src + "flash_attention_sm90.cu",
+        "replaces": FLASH_WGMMA.replaces, "launches": flash_launches,
+        "launches_path": "phase 7: the bf16 prefill",
+        "launches_by_path": flash_paths(FLASH_WGMMA),
+        **{k: flash_main[k] for k in (
+            "max_abs_err", "ms", "previous_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shape", "dtype")}})
     tf32_row = flash_rows["path", "float32"]
     out.append({
         "name": FLASH_TF32X3.name, "route": "cuda",
@@ -2814,7 +3134,8 @@ def main() -> int:
                 "phase 11: fused round, llama3.2-3b":
                     fused_row["launches_int8"][kern.name],
                 f"phase 19: MoE fused round, {MOE_ARCH} "
-                f"({MOE_ROUND_LAYERS} layers)": launches19[kern.name]},
+                f"({MOE_ROUND_LAYERS} layers)": launches19[kern.name],
+                "phase 20: SSM / hybrid serve": launches20[kern.name]},
             **{k: r[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape", "rows")}})
@@ -2840,6 +3161,10 @@ def main() -> int:
         "moe_round_warm_s": moe_round["int8_warm_s"],
         "moe_round_peak_mem_gb": moe_round["peak_mem_gb_int8"],
         "moe_round_idle_share": moe_round_dev["idle_share"],
+        **{f"{arch}_{key}": row[key] for arch, (row, _) in ssm_cells.items()
+           for key in ("prefill_ms", "decode_p50_ms", "peak_mem_gb")},
+        "hymba_flash_max_limit_share": max(r["limit_share"]
+                                           for r in ssm_flash),
         "shmproc_warm_wall_s": shm_row["warm_wall_s"],
         "shmproc_fork_cold_s": shm_row["stats"]["cold_latency_s"],
         "shmproc_fork_warm_s": shm_row["stats"]["warm_latency_s"],

@@ -13,7 +13,10 @@ Batches are dicts: train ``{"tokens", "labels"}`` (B,S) int (label -1
 is ignored), prefill ``{"tokens": (B,S) int}``; decode takes tokens
 (B,1), the caches and the absolute position ``pos``.  Caches are written
 in place by ``decode_step`` (see ``models/attention.py``).  The encoder
-/ modality-frontend configs are not ported yet and are refused by name.
+/ modality-frontend configs are not ported yet and are refused by name;
+SSM and hybrid configs serve, and training them (``loss``, and
+``ssm_impl="sharded"``, the option the fused round sets) is refused by
+name until the SSM fused round is ported (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -46,6 +49,11 @@ class LM:
         self.specs = tfm.layer_specs(cfg)
         for _, spec in tfm.segment_specs(self.specs):
             tfm.check_block(cfg, spec)
+        self.has_ssm = any(s.kind in ("ssm", "hybrid") for s in self.specs)
+        if self.has_ssm and self.opts.ssm_impl == "sharded":
+            raise NotImplementedError(
+                f"{cfg.name}: ssm_impl='sharded' (the SSM scan of the fused "
+                "round) is not ported yet (ROADMAP A.6)")
         self.dtype = getattr(torch, cfg.dtype)
 
     # ------------------------------------------------------------------
@@ -95,6 +103,10 @@ class LM:
         if batch.get("frontend") is not None:
             raise NotImplementedError("frontend embeddings are not ported "
                                       "yet (ROADMAP A.6)")
+        if self.has_ssm:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training SSM and hybrid blocks is not "
+                "ported yet (ROADMAP A.6)")
         hidden, aux, _ = self._forward(params, batch["tokens"])
         w, tied = self._unembed_w(params)
         labels = torch.as_tensor(batch["labels"], device=hidden.device)

@@ -1,0 +1,236 @@
+"""Mamba-1 selective SSM block: the JAX package's ``models/ssm.py`` on
+torch tensors, for serving (prefill and O(1) decode).
+
+The prefill scan is the JAX package's chunked form: the sequence is cut
+into chunks of ``chunk`` steps (the largest divisor of S not above the
+requested chunk, as there: a prime S gives chunk 1), each chunk is an
+associative scan over the affine maps (a_t, b_t) with
+(a2, b2)∘(a1, b1) = (a1·a2, a2·b1 + b2), and a Python loop carries the
+(B, d_inner, N) fp32 state across chunks.  torch has no
+``associative_scan``: ``associative_scan`` below is
+``jax.lax.associative_scan``'s odd/even recursion, so the fp32 products
+come in the reference's order (a ``cumprod`` / divide shortcut would
+lose the state: over a 250-step chunk the running product of ``a``
+falls to about 1e-18).  No Pallas kernel exists for this scan in the
+JAX package, so none is owed here.
+
+Dtypes are the reference's: ``B_t``, ``C_t`` and ``dt`` are fp32;
+``dt_low @ dt_proj`` runs in the model dtype and is widened before the
+fp32 ``dt_bias``; ``y + u·D`` is fp32; ``y`` is rounded to the model
+dtype before the gate.  ``softplus`` is ``jax.nn.softplus``'s
+``logaddexp(x, 0)`` = ``max(x, 0) + log1p(exp(-|x|))``, not
+``F.softplus``, which switches to the identity above 20.
+
+``ssm_scan_sharded`` (the ``shard_map`` form that ``ModelOptions(
+ssm_impl="sharded")`` selects for training) is not ported: the model
+refuses that option by name (ROADMAP A.6).  ``ssm_decode`` writes the
+layer's cache in place, as the port's attention decode does.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import dense_init
+
+
+def init_ssm(gen: torch.Generator, cfg: ArchConfig, d_model: int,
+             dtype: torch.dtype) -> dict:
+    """``dt_bias``, ``A_log`` and ``D`` stay fp32 in a 16-bit model."""
+    s = cfg.ssm
+    d_in = s.expand * d_model
+    dt_rank = s.resolved_dt_rank(d_model)
+    dev = gen.device
+    return {
+        "in_proj": dense_init(gen, (d_model, 2 * d_in), dtype),
+        "conv_w": dense_init(gen, (s.d_conv, d_in), dtype, scale=0.5),
+        "x_proj": dense_init(gen, (d_in, dt_rank + 2 * s.d_state), dtype),
+        "dt_proj": dense_init(gen, (dt_rank, d_in), dtype),
+        # softplus(-4.6) ≈ 0.01
+        "dt_bias": torch.full((d_in,), -4.6, dtype=torch.float32,
+                              device=dev),
+        "A_log": torch.log(torch.arange(
+            1, s.d_state + 1, dtype=torch.float32, device=dev).repeat(
+                d_in, 1)),
+        "D": torch.ones((d_in,), dtype=torch.float32, device=dev),
+        "out_proj": dense_init(gen, (d_in, d_model), dtype),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: torch.Tensor = None) -> torch.Tensor:
+    """Depthwise causal conv. x: (B,S,C), w: (K,C).  With ``state``
+    (B,K-1,C) the left context comes from the decode buffer.  The sum
+    ``Σ_k w[k]·x[t-(K-1)+k]`` accumulates in x's dtype, k = 0…K-1, as
+    the reference does (``F.conv1d`` would add in fp32)."""
+    K = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    out = torch.zeros_like(x)
+    for k in range(K):
+        out = out + xp[:, k:k + S, :] * w[k]
+    return out
+
+
+def _ssm_inputs(cfg: ArchConfig, params: dict, u: torch.Tensor):
+    """u: (B,S,d_in) post-conv activations -> (dt, B_t, C_t, A)."""
+    N = cfg.ssm.d_state
+    dt_rank = params["dt_proj"].shape[0]
+    proj = u @ params["x_proj"]                     # (B,S,dt_rank+2N)
+    dt_low = proj[..., :dt_rank]
+    B_t = proj[..., dt_rank:dt_rank + N].float()
+    C_t = proj[..., dt_rank + N:].float()
+    dt = softplus((dt_low @ params["dt_proj"]).float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])                 # (d_in, N)
+    return dt, B_t, C_t, A
+
+
+def _affine_combine(e1, e2):
+    a1, b1 = e1
+    a2, b2 = e2
+    return a1 * a2, a2 * b1 + b2
+
+
+def _sl(t: torch.Tensor, dim: int, start, stop=None, step: int = 1):
+    return t[(slice(None),) * dim + (slice(start, stop, step),)]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """a at the even positions of ``dim``, b at the odd ones."""
+    shape = list(a.shape)
+    shape[dim] += b.shape[dim]
+    out = a.new_empty(shape)
+    _sl(out, dim, 0, None, 2).copy_(a)
+    _sl(out, dim, 1, None, 2).copy_(b)
+    return out
+
+
+def associative_scan(fn: Callable, elems: Sequence[torch.Tensor],
+                     dim: int = 0) -> List[torch.Tensor]:
+    """Inclusive scan of ``fn`` (``fn(earlier, later)`` on tuples of
+    tensors) along ``dim``: ``jax.lax.associative_scan``'s recursion, so
+    every combine takes the same operands as there."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return list(elems)
+    # combine adjacent pairs, then scan the pairs
+    reduced = fn([_sl(e, dim, 0, -1, 2) for e in elems],
+                 [_sl(e, dim, 1, None, 2) for e in elems])
+    odd = associative_scan(fn, reduced, dim)
+    if n % 2 == 0:
+        even = fn([_sl(e, dim, 0, -1) for e in odd],
+                  [_sl(e, dim, 2, None, 2) for e in elems])
+    else:
+        even = fn(odd, [_sl(e, dim, 2, None, 2) for e in elems])
+    even = [torch.cat([_sl(e, dim, 0, 1), r], dim=dim)
+            for e, r in zip(elems, even)]
+    return [_interleave(e, o, dim) for e, o in zip(even, odd)]
+
+
+def scan_chunk(S: int, chunk: int) -> int:
+    """The largest divisor of S not exceeding ``chunk``."""
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+    return chunk
+
+
+def ssm_scan_chunked(cfg: ArchConfig, params: dict, u: torch.Tensor,
+                     h0: torch.Tensor, chunk: int = 256
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """u (B,S,d_in) conv+silu output, h0 (B,d_in,N) fp32 -> (y (B,S,d_in)
+    fp32, h_final)."""
+    S = u.shape[1]
+    chunk = scan_chunk(S, chunk)
+    dt, B_t, C_t, A = _ssm_inputs(cfg, params, u)
+    uf = u.float()
+    h, ys = h0, []
+    for lo in range(0, S, chunk):
+        dt_c, B_c, C_c, u_c = (t[:, lo:lo + chunk] for t in (dt, B_t, C_t,
+                                                              uf))
+        a = torch.exp(dt_c[..., None] * A)                  # (B,c,d_in,N)
+        b = (dt_c * u_c)[..., None] * B_c[:, :, None, :]    # (B,c,d_in,N)
+        a_cum, h_intra = associative_scan(_affine_combine, (a, b), dim=1)
+        del a, b
+        h_t = a_cum * h[:, None] + h_intra                  # (B,c,d_in,N)
+        del a_cum, h_intra
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_t, C_c))
+        h = h_t[:, -1].clone()
+        del h_t
+    y = torch.cat(ys, dim=1)
+    y = y + uf * params["D"]
+    return y, h
+
+
+def ssm_block(cfg: ArchConfig, params: dict, x: torch.Tensor,
+              chunk: int = 256, return_state: bool = False):
+    """Full mamba block: in_proj -> conv -> SSM -> gate -> out_proj.
+    ``return_state``: -> (out, {"h", "conv"}), the scan's final state
+    and the last ``d_conv - 1`` pre-conv inputs, the decode cache that
+    the JAX package takes from a second scan of the same inputs."""
+    B = x.shape[0]
+    d_in = params["dt_proj"].shape[1]
+    xz = x @ params["in_proj"]
+    raw, z = xz[..., :d_in], xz[..., d_in:]
+    u = F.silu(_causal_conv(raw, params["conv_w"]))
+    h0 = torch.zeros((B, d_in, cfg.ssm.d_state), dtype=torch.float32,
+                     device=x.device)
+    y, h_final = ssm_scan_chunked(cfg, params, u, h0, chunk=chunk)
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ params["out_proj"]
+    if not return_state:
+        return out
+    # a copy: a view would keep the whole (B, S, 2·d_in) projection alive
+    conv = raw[:, -(cfg.ssm.d_conv - 1):, :].clone()
+    return out, {"h": h_final, "conv": conv}
+
+
+# ---------------------------------------------------------------------------
+# decode: O(1) state update
+# ---------------------------------------------------------------------------
+
+
+def init_ssm_cache(cfg: ArchConfig, d_model: int, batch: int,
+                   dtype: torch.dtype, device) -> dict:
+    s = cfg.ssm
+    d_in = s.expand * d_model
+    return {
+        "h": torch.zeros((batch, d_in, s.d_state), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((batch, s.d_conv - 1, d_in), dtype=dtype,
+                            device=device),
+    }
+
+
+def ssm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
+               cache: dict):
+    """x: (B, 1, d_model) -> (y (B,1,d_model), cache written in place)."""
+    d_in = params["dt_proj"].shape[1]
+    xz = x @ params["in_proj"]
+    raw, z = xz[..., :d_in], xz[..., d_in:]
+    u = F.silu(_causal_conv(raw, params["conv_w"], state=cache["conv"]))
+    # the next step's conv window, built before the buffer is overwritten
+    window = torch.cat([cache["conv"][:, 1:], raw], dim=1)
+
+    dt, B_t, C_t, A = _ssm_inputs(cfg, params, u)
+    uf = u.float()[:, 0]
+    a = torch.exp(dt[:, 0, :, None] * A)                    # (B,d_in,N)
+    b = (dt[:, 0] * uf)[..., None] * B_t[:, 0, None, :]
+    h = a * cache["h"] + b
+    y = torch.einsum("bdn,bn->bd", h, C_t[:, 0])
+    y = y + uf * params["D"]
+    y = y[:, None].to(x.dtype) * F.silu(z)
+    cache["h"].copy_(h)
+    cache["conv"].copy_(window)
+    return y @ params["out_proj"], cache

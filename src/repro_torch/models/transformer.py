@@ -1,7 +1,7 @@
-"""Decoder stack for the attention-only archs: dense, GQA and MLA
-attention with a dense or MoE feed-forward.
+"""Decoder stack: dense, GQA and MLA attention with a dense or MoE
+feed-forward, Mamba SSM blocks, and hybrid attention + SSM blocks.
 
-The JAX package's ``models/transformer.py`` for ``kind="attn"`` blocks
+The JAX package's ``models/transformer.py`` for the decoder blocks
 without cross-attention.  Layers are grouped into *segments*: maximal
 runs of layers with one static :class:`LayerSpec`.  A segment's params
 keep the JAX layout — each leaf stacked on a leading layer axis, as
@@ -16,8 +16,13 @@ to the experts its forward chose.  MLA configs (``cfg.mla``) take
 ``models/mla.py``'s attention and latent ring cache; MoE layers
 ``models/moe.py``'s block, whose load-balance loss ``apply_stack`` sums
 over the layers; the leading dense layers of an MoE config take an FFN
-of ``dense_d_ff``.
-SSM, hybrid and cross-attention blocks are refused by name.
+of ``dense_d_ff``.  An SSM layer (``cfg.attention_free``) is
+``x + ssm_block(ln1(x))`` with no FFN; a hybrid layer
+(``cfg.hybrid_parallel_ssm``) runs attention and ``models/ssm.py``'s
+block on the same normed input and adds the mean of the two
+RMS-normed branches before its FFN.  Their decode state, ``{"h",
+"conv"}``, comes from the prefill's own scan (the JAX package scans a
+second time).  Cross-attention blocks are refused by name.
 
 Param tree:
   {"embed": (V,D), "segments": [stacked dict], "final_norm": {...},
@@ -34,6 +39,7 @@ from repro_torch.configs.base import GLOBAL, ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import ffn, init_ffn, init_rmsnorm, rmsnorm
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -98,16 +104,9 @@ def segment_specs(specs: List[LayerSpec]) -> List[Tuple[int, LayerSpec]]:
 
 def check_block(cfg: ArchConfig, spec: LayerSpec) -> None:
     """Refuse, naming its ROADMAP item, a block the port does not run."""
-    what = None
-    if spec.kind == "ssm":
-        what = "SSM (Mamba) blocks"
-    elif spec.kind == "hybrid":
-        what = "hybrid attention + SSM blocks"
-    elif spec.cross:
-        what = "cross-attention (enc-dec) blocks"
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name}: {what} are not ported yet "
-                                  "(ROADMAP A.6)")
+    if spec.cross:
+        raise NotImplementedError(f"{cfg.name}: cross-attention (enc-dec) "
+                                  "blocks are not ported yet (ROADMAP A.6)")
 
 
 def _stack(trees: List[Any]) -> Any:
@@ -136,10 +135,17 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
                 dtype: torch.dtype) -> dict:
     d = cfg.d_model
     p = {"ln1": init_rmsnorm(d, dtype, gen.device)}
+    if spec.kind == "ssm":
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, d, dtype)
+        return p
     if cfg.mla is not None:
         p["attn"] = mla_mod.init_mla(gen, cfg, dtype)
     else:
         p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
+    if spec.kind == "hybrid":
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, d, dtype)
+        p["branch_norm_attn"] = init_rmsnorm(d, dtype, gen.device)
+        p["branch_norm_ssm"] = init_rmsnorm(d, dtype, gen.device)
     p["ln2"] = init_rmsnorm(d, dtype, gen.device)
     if spec.moe:
         p["moe"] = moe_mod.init_moe(gen, cfg, dtype)
@@ -197,6 +203,11 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
     """-> (x, aux or None, cache_or_None).  ``route``: an MoE layer's
     ``moe.Route`` under remat."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if spec.kind == "ssm":
+        y = ssm_mod.ssm_block(cfg, params["ssm"], h, chunk=opts.ssm_chunk,
+                              return_state=collect_cache)
+        y, cache_out = y if collect_cache else (y, None)
+        return x + y, None, cache_out
     if cfg.mla is not None:
         a = mla_mod.mla_attention(cfg, params["attn"], h, positions,
                                   causal=spec.causal, impl=opts.attn_impl,
@@ -217,10 +228,24 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
         a, kv = a
         cap = opts.prefill_cache_capacity or h.shape[1]
         cache_out = _attn_cache_from_prefill(cfg, spec, kv, cap)
+    if spec.kind == "hybrid":
+        s = ssm_mod.ssm_block(cfg, params["ssm"], h, chunk=opts.ssm_chunk,
+                              return_state=collect_cache)
+        if collect_cache:
+            s, cache_out["ssm"] = s
+        a = _merge_branches(cfg, params, a, s)
     x = x + a
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     y, aux = _feed_forward(cfg, spec, opts, params, h2, route)
     return x + y, aux, cache_out
+
+
+def _merge_branches(cfg: ArchConfig, params: dict, a: torch.Tensor,
+                    s: torch.Tensor) -> torch.Tensor:
+    """A hybrid layer's mix: the mean of the RMS-normed attention and SSM
+    branches."""
+    return 0.5 * (rmsnorm(params["branch_norm_attn"], a, cfg.norm_eps)
+                  + rmsnorm(params["branch_norm_ssm"], s, cfg.norm_eps))
 
 
 def _ring_place(t: torch.Tensor, cap: int) -> torch.Tensor:
@@ -257,11 +282,16 @@ def _decode_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
                   pos: int) -> torch.Tensor:
     """One layer's decode step; writes the layer's cache in place."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if spec.kind == "ssm":
+        return x + ssm_mod.ssm_decode(cfg, params["ssm"], h, cache)[0]
     if cfg.mla is not None:
         a, _ = mla_mod.mla_decode(cfg, params["attn"], h, cache, pos)
     else:
         a, _ = attn_mod.attention_decode(cfg, params["attn"], h, cache, pos,
                                          window=spec.window)
+    if spec.kind == "hybrid":
+        s, _ = ssm_mod.ssm_decode(cfg, params["ssm"], h, cache["ssm"])
+        a = _merge_branches(cfg, params, a, s)
     x = x + a
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     return x + _feed_forward(cfg, spec, opts, params, h2)[0]
@@ -270,10 +300,17 @@ def _decode_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
 def init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                      capacity: int, dtype: torch.dtype, device) -> dict:
     check_block(cfg, spec)
+    if spec.kind == "ssm":
+        return ssm_mod.init_ssm_cache(cfg, cfg.d_model, batch, dtype, device)
     if cfg.mla is not None:
-        return mla_mod.init_mla_cache(cfg, batch, capacity, dtype, device)
-    return attn_mod.init_kv_cache(cfg, batch, capacity, spec.window, dtype,
-                                  device)
+        c = mla_mod.init_mla_cache(cfg, batch, capacity, dtype, device)
+    else:
+        c = attn_mod.init_kv_cache(cfg, batch, capacity, spec.window, dtype,
+                                   device)
+    if spec.kind == "hybrid":
+        c["ssm"] = ssm_mod.init_ssm_cache(cfg, cfg.d_model, batch, dtype,
+                                          device)
+    return c
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ tiles, as its own kernel tests run it), the port through its plain
 PyTorch version.  Shapes and tolerances are those of
 ``tests/test_kernels.py:112-136``: rtol = atol = 2e-6 in fp32 (fp32
 sums in another order), 2e-2 in bf16 and fp16 (one 16-bit rounding of
-the output), plus the head dims of the port's configs (120 and 256).
+the output), plus the head dims of the port's configs (120 and 256) and
+hymba-1.5b's group of 5 query heads a KV head.
 The choice among the three CUDA kernels is a pure function of dtype,
 head dims and alignment, tested here; the kernels themselves are held
 against the plain version on the card (``tests/test_torch_gpu.py``,
@@ -39,6 +40,9 @@ FP16 = (np.float16, torch.float16, 2e-2)
 #: the port's configs' head dims: h2o-danube-3-4b (120, window 4096)
 #: and gemma3 (256), at a ragged S
 WIDE_SHAPES = [(1, 333, 2, 2, 120, 100), (1, 200, 1, 2, 256, -1)]
+#: hymba-1.5b's odd group count: 25 query heads over 5 KV heads, D 64,
+#: a sliding window crossed by the sequence
+HYMBA_SHAPE = (1, 256, 5, 5, 64, 64)
 
 
 def _both(x: np.ndarray, dtype: str):
@@ -102,6 +106,11 @@ def test_plain_flash_matches_jax_pallas_kernel_at_wide_heads(B, S, K, G, D,
     covers S): in interpret mode a ragged key block reads the
     interpreter's NaN padding."""
     _against_jax(B, S, K, G, D, window, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_flash_matches_jax_pallas_kernel_at_hymbas_odd_group(dtype):
+    _against_jax(*HYMBA_SHAPE, dtype, bq=64, bk=64)
 
 
 @pytest.mark.parametrize("B,S,K,G,D,window", [SHAPES[1], SHAPES[3]])

@@ -1,8 +1,9 @@
 """The CUDA kernels (fedavg, the three flash-attention forwards, int8
 quantize and dequantize) against their plain PyTorch versions, the MoE
-ep block forward and backward, and the fused int8 round against the
-CPU, on the card.  Marked ``gpu``: they skip on a host
-without a CUDA device or ``nvcc``.  Run them on the card with
+ep block forward and backward, the Mamba block and its decode, and the
+fused int8 round against the CPU, on the card.  Marked ``gpu``: they
+skip on a host without a CUDA device or ``nvcc``.  Run them on the card
+with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -114,7 +115,9 @@ def test_eager_fold_is_bit_equal_on_aligned_and_misaligned_views(
 FLASH_SHAPES = [
     (1, 128, 1, 1, 32, -1), (2, 256, 2, 3, 64, -1), (1, 256, 4, 1, 64, 64),
     (2, 192, 2, 2, 32, 16), (1, 333, 2, 2, 120, 100), (1, 200, 1, 2, 256, -1),
-    (1, 1, 2, 3, 128, -1), (1, 63, 2, 3, 128, -1), (1, 2000, 2, 3, 128, -1)]
+    (1, 1, 2, 3, 128, -1), (1, 63, 2, 3, 128, -1), (1, 2000, 2, 3, 128, -1),
+    # hymba-1.5b: 25 query heads over 5 KV heads, D 64, window 1024
+    (1, 2000, 5, 5, 64, 1024)]
 
 
 def _flash_inputs(card, wire, B, S, K, G, D):
@@ -273,6 +276,53 @@ def test_moe_ep_backward_on_the_card_is_bit_equal_twice_and_matches_the_cpu(
         part = 1e-5 if dtype == "float32" else 2e-2
         torch.testing.assert_close(got, want, rtol=tol,
                                    atol=part * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_block_and_decode_on_the_card_match_the_cpu(card, dtype):
+    """Reduced falcon-mamba-7b's Mamba block (d_inner 128, N 8) over 2 x
+    300 tokens at chunk 256 (the largest divisor of 300 below it: 150),
+    then eight decode steps from its state, on the card against the
+    CPU: fp32 rtol = atol 1e-5 (sums in another order), bf16 3e-2
+    (activations round to bf16 at other places), the tolerances of
+    ``tests/test_torch_ssm.py``; the card's cache written in place."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import ssm
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wire = WIRE[dtype]
+    cfg = ARCHS["falcon-mamba-7b"].reduced(dtype=dtype)
+    params = ssm.init_ssm(torch.Generator().manual_seed(0), cfg,
+                          cfg.d_model, wire)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 300, cfg.d_model, generator=g).to(wire)
+    steps = torch.randn(8, 2, 1, cfg.d_model, generator=g).to(wire)
+    on_card = tree_map(lambda t: t.to(card), params)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+
+    got, got_state = ssm.ssm_block(cfg, on_card, x.to(card), chunk=256,
+                                   return_state=True)
+    want, state = ssm.ssm_block(cfg, params, x, chunk=256,
+                                return_state=True)
+    close(got, want)
+    for key in ("h", "conv"):
+        assert got_state[key].device.type == "cuda"
+        close(got_state[key], state[key])
+    ptrs = [t.data_ptr() for t in got_state.values()]
+    for tok in steps:
+        got, got_state = ssm.ssm_decode(cfg, on_card, tok.to(card),
+                                        got_state)
+        want, state = ssm.ssm_decode(cfg, params, tok, state)
+        close(got, want)
+    assert [t.data_ptr() for t in got_state.values()] == ptrs
+    for key in ("h", "conv"):
+        close(got_state[key], state[key])
 
 
 def _equal_bits(a, b):

@@ -244,9 +244,10 @@ def test_a_4d_leaf_that_is_not_a_conv_kernel_is_never_permuted():
 # what is not ported is refused by name
 # ---------------------------------------------------------------------------
 
-#: MLA and MoE archs, refused until their blocks were ported: their
-#: cases now check that they build and prefill
-PORTED_SINCE = {"deepseek-v2-lite-16b", "kimi-k2-1t-a32b"}
+#: MLA and MoE archs, and the SSM and hybrid ones, refused until their
+#: blocks were ported: their cases now check that they build and prefill
+PORTED_SINCE = {"deepseek-v2-lite-16b", "kimi-k2-1t-a32b",
+                "falcon-mamba-7b", "hymba-1.5b"}
 
 
 def _builds_and_prefills(cfg, **over):

@@ -41,8 +41,12 @@ on any fault; it imports nothing of the JAX package.  Phases:
    window 1024), h2o-danube-3-4b's (K 8, G 4, D 120, window 4096) and
    hymba-1.5b's (K 5, G 5, D 64, window 1024 and global) in bf16, and
    h2o-danube-3-4b's again on pointers off 16 bytes (the CUDA-core
-   kernel's inputs); and at the four shapes of the JAX
-   package's kernel test in all three.  One ``flash_case`` JSON line
+   kernel's inputs); at the four shapes of the JAX
+   package's kernel test in all three; and without a causal mask at
+   seamless-m4t-large-v2's encoder shape (B 4, S 512, 16 heads, D 64)
+   in bf16 (wgmma), fp32 (3xTF32) and bf16 off 16 bytes (CUDA cores),
+   where the plain version run causal must land outside the tolerance
+   that the kernel meets.  One ``flash_case`` JSON line
    each, with the library call (``scaled_dot_product_attention``) as the
    yardstick, the bound at the bf16 peak or, in fp32, at three TF32
    products (``bound_simt_ms``: fp32 FMA on the CUDA cores) and, for the
@@ -234,12 +238,42 @@ on any fault; it imports nothing of the JAX package.  Phases:
    ``LM_PARITY_ATOL`` with the same greedy tokens, and planted faults
    above it (layer 0's SSM state zeroed after prefill; hymba's first
    layer's KV heads rolled), within it of the same fault on the CPU.
+21. frontend and encoder-decoder serve, run after phase 20 (its models
+   are freed): internvl2-26b (48 layers; 256 stub patch embeddings
+   projected and put in front of the text) and seamless-m4t-large-v2
+   (24 encoder layers over 512 stub audio frames, 24 decoder layers
+   with cross-attention), each at full width and depth in bf16 with
+   random params from seed 0 drawn on the card and
+   ``attn_impl="pallas"``, freed before the next: the tree's params
+   against ``param_count()`` (plus seamless's encoder norm, which it
+   leaves out), the init's seconds and peak; 4 sequences (frontend
+   ``normal(0, 0.02)`` from a seed; internvl 2000 prompt tokens,
+   seamless a 256-token target-side prefix) and 32 greedy decode steps
+   at ``offset + S + i`` (internvl's offset is its 256 patches) with
+   every kernel count zeroed just before and read just after (the wgmma
+   kernel once a layer: 48 causal for internvl, 24 non-causal and 24
+   causal for seamless, whose cross-attention over 512 rows is plain
+   attention), finite logits; cold and warm prefill, decode p50 / p99,
+   the KV and cross caches' bytes, the peak; two warm prefills
+   bit-equal and the cross cache untouched by decode; a warm prefill
+   and a decode step split into flash, cross-attention, the encoder's
+   other work, matrix products and the rest (``front_split``) with the
+   idle share, the step beside the time to read every weight once; the
+   first and last layers' q, k and v of each stack captured and the
+   kernel held against its plain version on them.  Then each at full
+   width cut to 2 (+ 2 encoder) layers in fp32: prefill of S - 1 plus
+   a decode step at the offset against the full forward within 2e-3
+   with the same greedy token, and planted faults above it (internvl
+   decoded without its offset; seamless's encoder run causal); and the
+   reduced configs' serve loop on the card against the CPU within
+   ``LM_PARITY_ATOL`` with the same greedy tokens.
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
 phase 14 in netd and at the controller, phase 15, phase 16, phase 19,
-phase 20; each flash kernel its launches on every path that runs
-attention, phase 20's two models included; each quantize kernel its
-launches in phases 11, 19 and 20.
+phase 20, phase 21; each flash kernel its launches on every path that
+runs attention, phases 20's and 21's models included, and its
+non-causal case (phase 6, seamless's encoder shape); each quantize
+kernel its launches in phases 11, 19, 20 and 21.
 """
 from __future__ import annotations
 
@@ -301,9 +335,11 @@ from repro_torch.kernels.quantize.quantize import (  # noqa: E402
 from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
                                      make_host_mesh)
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.models.registry import LM  # noqa: E402
 from repro_torch.models.resnet import build_resnet  # noqa: E402
 from repro_torch.runtime import (ClientRuntime, FusedFLTrainer,  # noqa: E402
                                  PartialReady, UpdateArrived, WorkerCrashed)
@@ -715,26 +751,33 @@ def phase_parity():
                              f"{planted:.3e}, inside {PARITY_ATOL}")
 
 
-def visible_pairs(S: int, window: int) -> int:
-    """(i, j) pairs a causal attention of length S computes: what the
-    kernel must do, whatever tiles it visits."""
+def visible_pairs(S: int, window: int, causal: bool = True) -> int:
+    """(i, j) pairs an attention of length S computes (j <= i when
+    ``causal``, i - j < window under a window): what the kernel must do,
+    whatever tiles it visits."""
     if window == GLOBAL:
-        return S * (S + 1) // 2
+        return S * (S + 1) // 2 if causal else S * S
     w = min(window, S)
-    return w * (w + 1) // 2 + (S - w) * w
+    if causal:
+        return w * (w + 1) // 2 + (S - w) * w
+    # every later key, and the w - 1 earlier ones within the window
+    return S * S - (S - w) * (S - w + 1) // 2
 
 
-def flash_row(label, q, k, v, window, planted=False):
+def flash_row(label, q, k, v, window, planted=False, causal=True,
+              previous=True):
     """The flash kernel that ``flash_variant`` picks for (q, k, v) against
     its plain version, timed beside the library's attention on the same
-    inputs and, for the tensor-core kernels, beside the CUDA-core kernel
-    (``previous_ms``).  ``planted``: the plain version once more with
-    TF32 matmuls (one TF32 pass) must land outside the tolerance."""
+    inputs and, for the tensor-core kernels with ``previous``, beside the
+    CUDA-core kernel (``previous_ms``).  ``planted``: the plain version
+    once more with TF32 matmuls (one TF32 pass) must land outside the
+    tolerance.  A non-causal row (``causal=False``) holds its planted
+    fault always: the plain version run causal must land outside it."""
     B, S, K, G, D = q.shape
     Dv = v.shape[-1]
     H = K * G
     scale = D ** -0.5
-    kw = dict(window=window, causal=True, scale=scale)
+    kw = dict(window=window, causal=causal, scale=scale)
     run = lambda: fa_ops.flash_attention(q, k, v, impl="cuda", **kw)
     plain = lambda: fa_ops.flash_attention(q, k, v, impl="torch", **kw)
     simt = lambda: flash_attention_fwd_cuda(q, k, v, variant="simt", **kw)
@@ -767,21 +810,34 @@ def flash_row(label, q, k, v, window, planted=False):
             raise AssertionError(f"flash[{label}]: one TF32 pass lands "
                                  f"inside rtol=atol={tol}: {one_pass}")
         del one
+    causal_plain = None
+    if not causal:
+        wrong = fa_ops.flash_attention(q, k, v, impl="torch",
+                                       **{**kw, "causal": True}).float()
+        causal_plain = {"max_abs_err": errors(wrong, got.float())[0],
+                        "limit_share": limit_share(got.float(), wrong, tol)}
+        if not causal_plain["limit_share"] > 1.0:
+            raise AssertionError(f"flash[{label}]: the kernel lands inside "
+                                 f"rtol=atol={tol} of causal attention: "
+                                 f"{causal_plain}")
+        del wrong
     del got, want
     qh = q.reshape(B, S, H, D).transpose(1, 2).contiguous()
     kh = k.transpose(1, 2).contiguous()
     vh = v.transpose(1, 2).contiguous()
     if window == GLOBAL:
         library = lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, enable_gqa=True, scale=scale)
+            qh, kh, vh, is_causal=causal, enable_gqa=True, scale=scale)
     else:
         i = torch.arange(S, device=q.device)
-        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        band = i[:, None] - i[None, :] < window
+        if causal:
+            band &= i[:, None] >= i[None, :]
         library = lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=band, enable_gqa=True, scale=scale)
     esz = q.element_size()
     nbytes = esz * (q.numel() + k.numel() + v.numel() + B * S * H * Dv)
-    flops = 2 * B * H * visible_pairs(S, window) * (D + Dv)
+    flops = 2 * B * H * visible_pairs(S, window, causal) * (D + Dv)
     b_bytes = nbytes / NOMINAL_BPS
     if q.dtype == torch.float32:
         # fp32-accurate work: three TF32 products on the tensor cores
@@ -793,12 +849,13 @@ def flash_row(label, q, k, v, window, planted=False):
     # tensor cores)
     ms = time_ms(run, reps=reps)
     prev_ms = None
-    if kern is not FLASH_SIMT:
+    if previous and kern is not FLASH_SIMT:
         prev_ms = min(time_ms(simt, reps=reps), time_ms(simt, reps=reps))
     row = {
         "case": label, "dtype": str(q.dtype).replace("torch.", ""),
         "kernel": kern.name, "aligned": aligned,
-        "shape": [B, S, K, G, D, Dv], "window": window, "tol": tol,
+        "shape": [B, S, K, G, D, Dv], "window": window, "causal": causal,
+        "tol": tol,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "limit_share": share,
         "ms": min(ms, time_ms(run, reps=reps)), "previous_ms": prev_ms,
@@ -812,6 +869,8 @@ def flash_row(label, q, k, v, window, planted=False):
         row["bound_simt_ms"] = max(b_bytes, flops / FP32_FLOPS) * 1e3
     if one_pass is not None:
         row["one_tf32_pass"] = one_pass
+    if causal_plain is not None:
+        row["causal_plain_vs_kernel"] = causal_plain
     return row
 
 
@@ -830,7 +889,7 @@ def phase_flash():
     g = torch.Generator(device="cuda").manual_seed(0)
     every = (torch.bfloat16, torch.float16, torch.float32)
     bf16 = (torch.bfloat16,)
-    # (label, B, S, K, G, D, window, dtypes, element offset)
+    # (label, B, S, K, G, D, window, dtypes, element offset[, causal])
     cases = [("path", 4, 2000, 8, 3, 128, GLOBAL, every, 0),
              ("gemma3", 4, 2000, 4, 2, 256, 1024, bf16, 0),
              ("h2o_danube3", 4, 2000, 8, 4, 120, 4096, bf16, 0),
@@ -840,14 +899,21 @@ def phase_flash():
              ("test0", 1, 128, 1, 1, 32, GLOBAL, every, 0),
              ("test1", 2, 256, 2, 3, 64, GLOBAL, every, 0),
              ("test2", 1, 256, 4, 1, 64, 64, every, 0),
-             ("test3", 2, 192, 2, 2, 32, 16, every, 0)]
+             ("test3", 2, 192, 2, 2, 32, 16, every, 0),
+             # seamless-m4t-large-v2's encoder: 16 heads (MHA), D 64, its
+             # 512 frames, no causal mask; each kernel's inputs
+             ("seamless_encoder", 4, 512, 16, 1, 64, GLOBAL,
+              (torch.bfloat16, torch.float32), 0, False),
+             ("seamless_encoder_unaligned", 4, 512, 16, 1, 64, GLOBAL, bf16,
+              1, False)]
     rows = {}
-    for label, B, S, K, G, D, window, dtypes, off in cases:
+    for label, B, S, K, G, D, window, dtypes, off, *causal in cases:
         for dtype in dtypes:
             mk = lambda *shape: randn_on_card(shape, dtype, g, off)
             row = flash_row(label, mk(B, S, K, G, D), mk(B, S, K, D),
                             mk(B, S, K, D), window,
-                            planted=(label, dtype) == ("path", torch.float32))
+                            planted=(label, dtype) == ("path", torch.float32),
+                            causal=causal[0] if causal else True)
             log("flash_case " + json.dumps(row))
             rows[label, row["dtype"]] = row
     return rows
@@ -872,16 +938,22 @@ def flash_calls(fn):
         fa_ops.flash_attention = orig
 
 
-def serve(model, params, prompts, steps, device):
+def serve(model, params, prompts, steps, device, frontend=None, offset=0):
     """``examples/serve_decode.py``'s loop: prefill, then greedy decode
-    on the ring cache.  -> (logits of every step (B, 1 + steps, V),
-    tokens (B, 1 + steps), prefill s, per-step s, caches)."""
+    on the ring cache.  ``frontend``: the stub's embeddings, in the
+    prefill's batch; ``offset``: the positions ahead of the prompt (a
+    decoder-only model's patches), so step i decodes at ``offset + S +
+    i``.  -> (logits of every step (B, 1 + steps, V), tokens (B, 1 +
+    steps), prefill s, per-step s, caches)."""
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else (lambda: None))
-    S = prompts.shape[1]
+    S = offset + prompts.shape[1]
+    batch = {"tokens": prompts}
+    if frontend is not None:
+        batch["frontend"] = frontend
     sync()
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, {"tokens": prompts})
+    logits, caches = model.prefill(params, batch)
     sync()
     prefill_s = time.perf_counter() - t0
     out, toks, lat = [logits], [logits[:, -1].argmax(-1)[:, None]], []
@@ -2360,6 +2432,320 @@ def phase_ssm_serve(copy_bps):
         phase_ssm_parity(arch)
     return cells, flash_rows
 
+# ---------------------------------------------------------------------------
+# phase 21: frontend and encoder-decoder serving (internvl2-26b,
+# seamless-m4t-large-v2)
+# ---------------------------------------------------------------------------
+
+FRONT_ARCHS = ("internvl2-26b", "seamless-m4t-large-v2")
+#: text tokens a prompt: phase 7's 2000 behind internvl's 256 patches; a
+#: 256-token target-side prefix, which a speech translator decodes
+#: against its 512 source frames
+FRONT_PROMPT = {"internvl2-26b": LM_PROMPT, "seamless-m4t-large-v2": 256}
+FRONT_DECODE_TOL = 2e-3      # decode vs full forward, tests/test_smoke_archs.py
+FRONT_PARITY_PROMPT = 64     # text tokens of the depth-cut fp32 copies
+
+
+def front_offset(cfg) -> int:
+    """Positions ahead of the text: a decoder-only model's patches; an
+    encoder's frames take none (``tests/test_smoke_archs.py:76``)."""
+    return cfg.frontend_tokens if cfg.frontend and not cfg.encoder_layers \
+        else 0
+
+
+def front_embeddings(cfg, batch, seed, device):
+    """The stub's precomputed embeddings (batch, F, d_model) in fp32,
+    drawn with numpy ``normal(0, 0.02)`` from ``seed``."""
+    x = np.random.default_rng(seed).normal(
+        0, 0.02, size=(batch, cfg.frontend_tokens, cfg.d_model))
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def encoder_norm_params(cfg) -> int:
+    """The encoder's final norm, which the tree holds and
+    ``ArchConfig.param_count`` leaves out, as in the JAX package."""
+    return cfg.d_model if cfg.encoder_layers else 0
+
+
+def front_model(cfg, prompt, steps):
+    return build_model(cfg, ModelOptions(
+        attn_impl="pallas", remat=False,
+        prefill_cache_capacity=front_offset(cfg) + prompt + steps + 8))
+
+
+def front_split(fn):
+    """``fn()`` once under torch.profiler (``range_split``): device ms of
+    the flash kernel and of matrix products (by kernel name), of the
+    cross-attention core (plain attention over the memory in a prefill,
+    ``cross_attention_decode`` in a decode step), of the encoder's other
+    work and of the rest; kernel count, wall time and the device's idle
+    share."""
+    def override(name):
+        if "flash_fwd" in name.lower():
+            return "flash_ms"
+        return "matmul_ms" if is_gemm(name) else None
+
+    return range_split(
+        fn, ("flash_ms", "cross_ms", "encoder_ms", "matmul_ms", "other_ms"),
+        [(attn_mod, {"_attend_naive": "attn.cross",
+                     "cross_attention_decode": "attn.cross"}),
+         (LM, {"_encode": "lm.encode"})],
+        {"attn.cross": "cross_ms", "lm.encode": "encoder_ms"},
+        override=override, fallback=lambda name: "other_ms")
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_front_cell(arch, copy_bps):
+    """One full-width frontend config (bf16, random params from seed 0
+    drawn on the card, ``attn_impl="pallas"``): 4 prompts with the stub's
+    embeddings and 32 greedy decode steps at ``offset + S + i``, every
+    kernel count zeroed just before and read just after (the wgmma flash
+    kernel once a layer: internvl's 48 causal over 2256 positions,
+    seamless's 24 encoder layers non-causal over 512 frames and 24
+    decoder layers causal over 256 tokens; its cross-attention over a
+    memory of 512 <= 1024 rows is plain attention and launches nothing);
+    finite logits; cold and warm prefill, decode p50 / p99, the KV and
+    cross caches' bytes, the peak; two warm prefills bit-equal, and the
+    cross cache after 32 decode steps bit-equal to a fresh prefill's;
+    a warm prefill and a decode step split by ``front_split``, the step
+    beside the time to read every weight once; the q, k and v of the
+    first and last layers of each stack captured.  -> (row, launches,
+    captured inputs {label: (q, k, v, window, causal)})."""
+    cfg = ARCHS[arch]
+    prompt, off = FRONT_PROMPT[arch], front_offset(cfg)
+    n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
+    model = front_model(cfg, prompt, LM_STEPS)
+    cuda = torch.device("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    leaves = tree_leaves(params)
+    n_params = sum(l.numel() for l in leaves)
+    param_bytes = nbytes(leaves)
+    del leaves
+    if n_params != cfg.param_count() + encoder_norm_params(cfg):
+        raise AssertionError(
+            f"{arch} has {n_params} params, the config counts "
+            f"{cfg.param_count()} + {encoder_norm_params(cfg)} encoder norm")
+    if init_peak > INIT_PEAK_LIMIT * param_bytes:
+        raise AssertionError(f"init peaked at {init_peak / 1e9:.2f} GB for "
+                             f"{param_bytes / 1e9:.2f} GB of params")
+    prompts = torch.from_numpy(TokenTaskStream(
+        cfg.vocab_size, prompt, seed=1).batch(LM_BATCH)["tokens"]).cuda()
+    frontend = front_embeddings(cfg, LM_BATCH, 2, cuda)
+    # a prefill's flash calls in order: the encoder's layers, then the
+    # decoder's
+    keep = {n_enc + n_dec - 1: f"layer{n_dec - 1}"}
+    if n_enc:
+        keep.update({0: "encoder_layer0",
+                     n_enc - 1: f"encoder_layer{n_enc - 1}",
+                     n_enc: "decoder_layer0",
+                     n_enc + n_dec - 1: f"decoder_layer{n_dec - 1}"})
+    else:
+        keep[0] = "layer0"
+    captured, calls = {}, collections.Counter()
+
+    def capture(i, orig, q, k, v, *args, **kw):
+        calls["causal" if kw["causal"] else "noncausal"] += 1
+        if i in keep:
+            captured[keep[i]] = (q.clone(), k.clone(), v.clone(),
+                                 kw["window"], kw["causal"])
+        return orig(q, k, v, *args, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    with flash_calls(capture):
+        for kern in all_kernels():
+            kern.launches = 0
+        logits, toks, prefill_s, lat, caches = serve(
+            model, params, prompts, LM_STEPS, cuda, frontend, off)
+        launches = {kern.name: kern.launches for kern in all_kernels()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {kern.name: (n_enc + n_dec) * int(kern is FLASH_WGMMA)
+            for kern in all_kernels()}
+    if launches != want:
+        raise AssertionError(f"{arch} launched {launches}, not {want}")
+    want_calls = {"causal": n_dec, **({"noncausal": n_enc} if n_enc else {})}
+    if dict(calls) != want_calls:
+        raise AssertionError(f"{arch}: flash calls {dict(calls)}, not "
+                             f"{want_calls}")
+    if tuple(logits.shape) != (LM_BATCH, 1 + LM_STEPS, cfg.vocab_size):
+        raise AssertionError(f"logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: non-finite logits")
+    kv_bytes = nbytes(c[key] for c in caches for key in ("k", "v"))
+    cross = [c["cross"] for c in caches if "cross" in c]
+    cross_bytes = nbytes(tree_leaves(cross))
+    batch = {"tokens": prompts, "frontend": frontend}
+    warm, warm_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm.append(model.prefill(params, batch))
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+    warm_s = min(warm_s)
+    twice = bits_equal(warm[0][0], warm[1][0]) and bits_equal_trees(
+        warm[0][1], warm[1][1])
+    # decode reads the cross cache and never writes it
+    cross_kept = bits_equal_trees(
+        cross, [c["cross"] for c in warm[0][1] if "cross" in c])
+    del warm
+    if not twice:
+        raise AssertionError(f"{arch}: two warm prefills differ")
+    if not cross_kept:
+        raise AssertionError(f"{arch}: decode wrote the cross cache")
+    lat_ms = sorted(x * 1e3 for x in lat)
+    positions = LM_BATCH * (cfg.frontend_tokens + prompt)
+    row = {
+        "arch": arch, "card": device_line(), "params": n_params,
+        "param_bytes": param_bytes, "config_param_count": cfg.param_count(),
+        "params_over_config": n_params - cfg.param_count(),
+        "dtype": cfg.dtype, "batch": LM_BATCH,
+        "frontend_tokens": cfg.frontend_tokens, "prompt": prompt,
+        "decode_offset": off, "steps": LM_STEPS, "init_s": init_s,
+        "init_peak_gb": init_peak / 1e9,
+        "prefill_cold_ms": prefill_s * 1e3, "prefill_ms": warm_s * 1e3,
+        "prefill_tok_s": LM_BATCH * prompt / warm_s,
+        "prefill_positions_s": positions / warm_s,
+        "decode_first_ms": lat[0] * 1e3,
+        "decode_p50_ms": float(np.percentile(lat_ms, 50)),
+        "decode_p99_ms": float(np.percentile(lat_ms, 99)),
+        "decode_tok_s": LM_BATCH * LM_STEPS / sum(lat),
+        "kv_cache_bytes": kv_bytes, "cross_cache_bytes": cross_bytes,
+        "peak_mem_gb": peak / 1e9,
+        "launches": {k: n for k, n in launches.items() if n},
+        "flash_calls": dict(calls), "two_prefills_bit_equal": twice,
+        "cross_cache_kept_by_decode": cross_kept,
+        "tokens_0": toks[0, :8].tolist()}
+    log("front_serve " + json.dumps(row))
+    log("front_serve_prefill_device " + json.dumps({
+        "arch": arch, **front_split(lambda: model.prefill(params, batch))}))
+    tok = toks[:, -1:]
+    split = front_split(lambda: model.decode_step(
+        params, tok, caches, off + prompt + LM_STEPS))
+    # the least a decode step can take: every weight read once
+    split["weight_read_ms"] = param_bytes / copy_bps * 1e3
+    log("front_serve_decode_device " + json.dumps({"arch": arch, **split}))
+    del params, logits, caches, cross, batch, frontend, model
+    torch.cuda.empty_cache()
+    return row, launches, captured
+
+
+def causal_encoder(i, orig, q, k, v, *args, **kw):
+    """A planted fault: the encoder's self-attention run causal."""
+    return orig(q, k, v, *args, **{**kw, "causal": True})
+
+
+def phase_front_checks(arch):
+    """(a) ``arch`` at full width, cut to 2 decoder layers (and 2 encoder
+    layers), in fp32 on the card: prefill of S text tokens against
+    prefill of S - 1 plus one ``decode_step`` at ``offset + S - 1``,
+    within ``FRONT_DECODE_TOL`` with the same greedy token, and a planted
+    fault outside it (internvl decoded without its patches' offset;
+    seamless's encoder run causal in the shorter prefill).  (b) The
+    reduced config in fp32 (150-token prompts): the serve loop on the
+    card against the CPU within ``LM_PARITY_ATOL`` with the same greedy
+    tokens."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    full_cfg = ARCHS[arch]
+    cfg = dataclasses.replace(
+        full_cfg, dtype="float32", num_layers=2,
+        encoder_layers=min(full_cfg.encoder_layers, 2))
+    S, off = FRONT_PARITY_PROMPT, front_offset(cfg)
+    model = front_model(cfg, S, 0)
+    params = model.init(seed=0)
+    t = torch.from_numpy(TokenTaskStream(
+        cfg.vocab_size, S, seed=1).batch(LM_BATCH)["tokens"]).cuda()
+    fe = front_embeddings(cfg, LM_BATCH, 3, cuda)
+    full, _ = model.prefill(params, {"tokens": t, "frontend": fe})
+
+    def decoded(pos, plant=None):
+        with (flash_calls(plant) if plant else contextlib.nullcontext()):
+            _, caches = model.prefill(params, {"tokens": t[:, :-1],
+                                               "frontend": fe})
+        return model.decode_step(params, t[:, -1:], caches, pos)[0]
+
+    def versus(dec):
+        return {"max_abs_diff": float((dec - full).abs().max()),
+                "same_greedy_token": bool(
+                    (dec[:, -1].argmax(-1) == full[:, -1].argmax(-1)).all())}
+
+    sound = versus(decoded(off + S - 1))
+    if cfg.encoder_layers:
+        fault = ("encoder_causal", versus(decoded(off + S - 1,
+                                                  causal_encoder)))
+    else:
+        fault = ("no_patch_offset", versus(decoded(S - 1)))
+    torch.cuda.synchronize()
+    del params, full, model
+    torch.cuda.empty_cache()
+
+    small = ARCHS[arch].reduced(dtype="float32")
+    steps, off = 8, front_offset(small)
+    model = front_model(small, 150, steps)
+    p_cpu = model.init(seed=0, device="cpu")
+    prompts = torch.from_numpy(TokenTaskStream(
+        small.vocab_size, 150, seed=1).batch(LM_BATCH)["tokens"])
+    fe = front_embeddings(small, LM_BATCH, 3, cpu)
+    cpu_logits, cpu_toks, *_ = serve(model, p_cpu, prompts, steps, cpu, fe,
+                                     off)
+    card_logits, card_toks, *_ = serve(
+        model, tree_map(lambda x: x.to(cuda), p_cpu), prompts.to(cuda),
+        steps, cuda, fe.to(cuda), off)
+    parity = float((card_logits.cpu() - cpu_logits).abs().max())
+    same = bool((card_toks.cpu() == cpu_toks).all())
+    log("front_parity " + json.dumps({
+        "arch": arch, "depth_cut_layers": [cfg.encoder_layers,
+                                           cfg.num_layers],
+        "prompt": S, "decode_offset": front_offset(cfg),
+        "decode_vs_forward": sound, "tol": FRONT_DECODE_TOL,
+        "planted": {fault[0]: fault[1]},
+        "reduced_card_vs_cpu_max_abs": parity, "atol": LM_PARITY_ATOL,
+        "reduced_same_greedy_tokens": same, "steps": steps}))
+    if not (sound["max_abs_diff"] <= FRONT_DECODE_TOL
+            and sound["same_greedy_token"]):
+        raise AssertionError(f"{arch}: decode vs the full forward {sound}")
+    if not fault[1]["max_abs_diff"] > FRONT_DECODE_TOL:
+        raise AssertionError(f"{arch}: {fault[0]} moved the logits by "
+                             f"{fault[1]['max_abs_diff']:.3e}, inside "
+                             f"{FRONT_DECODE_TOL}")
+    if not same:
+        raise AssertionError(f"{arch}: card and CPU chose different greedy "
+                             "tokens")
+    if not parity <= LM_PARITY_ATOL:
+        raise AssertionError(f"{arch}: card vs CPU logits {parity:.3e} > "
+                             f"{LM_PARITY_ATOL}")
+
+
+def phase_front_serve(copy_bps):
+    """Phase 21: internvl2-26b, then seamless-m4t-large-v2, each at full
+    width and depth (each freed before the next), the flash kernel held
+    against its plain version on the captured inputs, then the checks.
+    -> ({arch: (row, launches)}, flash rows)."""
+    cells, flash_rows = {}, []
+    for arch in FRONT_ARCHS:
+        row, launches, captured = phase_front_cell(arch, copy_bps)
+        cells[arch] = (row, launches)
+        for label in sorted(captured):
+            q, k, v, window, causal = captured.pop(label)
+            r = flash_row(f"{arch}_{label}", q, k, v, window, causal=causal,
+                          previous=False)
+            log("flash_case " + json.dumps(r))
+            flash_rows.append(r)
+            del q, k, v
+        torch.cuda.empty_cache()
+    for arch in FRONT_ARCHS:
+        phase_front_checks(arch)
+    return cells, flash_rows
+
 
 # ---------------------------------------------------------------------------
 # phases 13-15: the multi-process and multi-node runtimes, serve mode
@@ -3002,6 +3388,16 @@ def main() -> int:
                             ssm_cells.values())
                   for name in ssm_cells[SSM_ARCHS[0]][1]}
 
+    # phase 21: frontend and encoder-decoder serving, full-width
+    # internvl2-26b and seamless-m4t-large-v2 (phase 20's models are
+    # freed)
+    t21 = time.perf_counter()
+    front_cells, front_flash = phase_front_serve(copy_bps)
+    front_s = time.perf_counter() - t21
+    launches21 = {name: sum(launches[name] for _, launches in
+                            front_cells.values())
+                  for name in front_cells[FRONT_ARCHS[0]][1]}
+
     # phases 13-15: phase 5's workload on the shmproc and multi-node
     # runtimes and through serve mode (the kernels were built in phase
     # 2, before any daemon starts)
@@ -3070,7 +3466,9 @@ def main() -> int:
                 "phase 16: service, two jobs, inproc":
                     svc_row["launches"][kern.name],
                 "phase 19: MoE fused round": launches19[kern.name],
-                "phase 20: SSM / hybrid serve": launches20[kern.name]}})
+                "phase 20: SSM / hybrid serve": launches20[kern.name],
+                "phase 21: frontend / enc-dec serve":
+                    launches21[kern.name]}})
     kernel_ms = sum(launches[o["name"]] * o["ms"] for o in out) / 1e3
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/"
 
@@ -3087,7 +3485,16 @@ def main() -> int:
                     fused_row["launches_int8"][kern.name],
                 "phase 19: MoE fused round": launches19[kern.name],
                 **{f"phase 20: {arch} serve": launches[kern.name]
-                   for arch, (_, launches) in ssm_cells.items()}}
+                   for arch, (_, launches) in ssm_cells.items()},
+                **{f"phase 21: {arch} serve": launches[kern.name]
+                   for arch, (_, launches) in front_cells.items()}}
+
+    def noncausal(row):
+        """A kernel's non-causal case (phase 6, seamless's encoder)."""
+        return {k: row[k] for k in (
+            "case", "shape", "dtype", "aligned", "max_abs_err",
+            "limit_share", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "causal_plain_vs_kernel")}
 
     out.append({
         "name": FLASH_WGMMA.name, "route": "cuda",
@@ -3097,7 +3504,8 @@ def main() -> int:
         "launches_by_path": flash_paths(FLASH_WGMMA),
         **{k: flash_main[k] for k in (
             "max_abs_err", "ms", "previous_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "shape", "dtype")}})
+            "bound_by", "library_ms", "shape", "dtype")},
+        "noncausal": noncausal(flash_rows["seamless_encoder", "bfloat16"])})
     tf32_row = flash_rows["path", "float32"]
     out.append({
         "name": FLASH_TF32X3.name, "route": "cuda",
@@ -3109,7 +3517,8 @@ def main() -> int:
         **{k: tf32_row[k] for k in (
             "max_abs_err", "limit_share", "ms", "previous_ms", "plain_ms",
             "bound_ms", "bound_simt_ms", "bound_by", "library_ms", "shape",
-            "dtype")}})
+            "dtype")},
+        "noncausal": noncausal(flash_rows["seamless_encoder", "float32"])})
     simt_row = flash_rows["h2o_danube3_unaligned", "bfloat16"]
     out.append({
         "name": FLASH_SIMT.name, "route": "cuda",
@@ -3121,7 +3530,9 @@ def main() -> int:
         "launches_by_path": flash_paths(FLASH_SIMT),
         **{k: simt_row[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape", "dtype", "aligned")}})
+            "library_ms", "shape", "dtype", "aligned")},
+        "noncausal": noncausal(
+            flash_rows["seamless_encoder_unaligned", "bfloat16"])})
 
     for kern in Q_KERNELS:
         r = quant_rows[kern.name]
@@ -3135,7 +3546,9 @@ def main() -> int:
                     fused_row["launches_int8"][kern.name],
                 f"phase 19: MoE fused round, {MOE_ARCH} "
                 f"({MOE_ROUND_LAYERS} layers)": launches19[kern.name],
-                "phase 20: SSM / hybrid serve": launches20[kern.name]},
+                "phase 20: SSM / hybrid serve": launches20[kern.name],
+                "phase 21: frontend / enc-dec serve":
+                    launches21[kern.name]},
             **{k: r[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape", "rows")}})
@@ -3165,6 +3578,12 @@ def main() -> int:
            for key in ("prefill_ms", "decode_p50_ms", "peak_mem_gb")},
         "hymba_flash_max_limit_share": max(r["limit_share"]
                                            for r in ssm_flash),
+        **{f"{arch}_{key}": row[key] for arch, (row, _) in
+           front_cells.items() for key in ("prefill_ms", "decode_p50_ms",
+                                           "peak_mem_gb")},
+        "front_flash_max_limit_share": max(r["limit_share"]
+                                           for r in front_flash),
+        "front_phase_s": front_s,
         "shmproc_warm_wall_s": shm_row["warm_wall_s"],
         "shmproc_fork_cold_s": shm_row["stats"]["cold_latency_s"],
         "shmproc_fork_warm_s": shm_row["stats"]["warm_latency_s"],

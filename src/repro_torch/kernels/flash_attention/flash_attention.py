@@ -77,6 +77,21 @@ def flash_variant(dtype: torch.dtype, d: int, dv: int,
     return "tf32x3" if dtype == torch.float32 else "wgmma"
 
 
+def check_one_length(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> None:
+    """Raise unless q (B,Sq,...) and k, v (B,Skv,...) share one length:
+    the kernels (and the TPU kernel they replace) compute self-attention
+    over positions ``arange(S)``.  A cross-attention memory of another
+    length than the queries takes ``attn_impl`` "naive" or "chunked";
+    the JAX package's kernel would read only its first Sq rows."""
+    if k.shape[1] != q.shape[1] or v.shape[1] != q.shape[1]:
+        raise ValueError(
+            f"q, k and v lengths do not match: flash attention computes "
+            f"self-attention over one length, and q has {q.shape[1]} rows, "
+            f"k {k.shape[1]} and v {v.shape[1]}; cross-attention over a "
+            f'memory of another length takes attn_impl "naive" or "chunked"')
+
+
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, scale: float,
                              window: int = GLOBAL, causal: bool = True,
@@ -91,6 +106,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{name} must be {nd}-D, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    check_one_length(q, k, v)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")

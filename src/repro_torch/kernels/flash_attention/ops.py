@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels.build import use_kernel
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention_fwd_cuda)
+    check_one_length, flash_attention_fwd_cuda)
 from repro_torch.kernels.flash_attention.ref import GLOBAL, attention_ref
 
 
@@ -32,7 +32,9 @@ def flash_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     """-> (B, S, K, G, Dv).  qpos/kpos are accepted for interface parity
-    with the JAX package; the kernel assumes self-attention (arange)."""
+    with the JAX package; the kernel assumes self-attention (arange), and
+    k and v of another length than q are refused on either path."""
+    check_one_length(q, k, v)
     if use_kernel(impl, q):
         return flash_attention_fwd_cuda(q, k, v, scale=scale, window=window,
                                         causal=causal)

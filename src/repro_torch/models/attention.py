@@ -11,7 +11,14 @@ impls.
   (``kernels/flash_attention``): the CUDA kernel on the card, its plain
   version on the CPU.  The name is the JAX package's option name.
 
-Cross-attention is not ported yet and is refused by name.
+Cross-attention (``memory=``, an encoder–decoder's decoder layers)
+projects K/V from the memory without RoPE, attends without a causal
+mask over keys at ``arange(Sm)``, and takes ``_attend_chunked`` (the
+plain blockwise scan) under ``chunked``; under ``pallas`` a memory of
+another length than the queries is refused, since the kernel computes
+self-attention over one length (the JAX package's kernel silently
+reads only the first ``Sq`` memory rows).  At decode the cross K/V are
+a static cache from the prefill (``init_cross_cache``), never written.
 
 Decode uses a ring-buffer KV cache (slot ``pos % capacity`` is
 overwritten) and one einsum over the cache.  Unlike the JAX package,
@@ -27,6 +34,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import GLOBAL, ArchConfig
 from repro_torch.models.flash import (flash_self_attention,
@@ -36,11 +44,6 @@ from repro_torch.models.layers import apply_rope, dense_init, rmsnorm_headwise
 _NEG_INF = -1e30
 
 
-def _refuse_cross() -> None:
-    raise NotImplementedError("cross-attention (enc-dec) is not ported yet "
-                              "(ROADMAP A.6)")
-
-
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
@@ -48,8 +51,6 @@ def _refuse_cross() -> None:
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
                    cross: bool = False) -> dict:
-    if cross:
-        _refuse_cross()
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
         "wq": dense_init(gen, (d, h * hd), dtype),
@@ -57,7 +58,7 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
         "wv": dense_init(gen, (d, kvh * hd), dtype),
         "wo": dense_init(gen, (h * hd, d), dtype),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
         p["k_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
     return p
@@ -107,6 +108,49 @@ def _attend_naive(q, k, v, qpos, kpos, window, causal, scale):
 
 
 # ---------------------------------------------------------------------------
+# chunked impl for cross-attention (online softmax over KV blocks)
+# ---------------------------------------------------------------------------
+
+
+def _attend_chunked(q, k, v, qpos, kpos, window, causal, scale,
+                    block_kv: int):
+    """Online softmax over KV blocks of ``block_kv`` keys, the JAX
+    package's ``lax.scan`` a Python loop.  As there, the padded keys of
+    a ragged last block take position -1e9 and only a window masks
+    them: a non-causal call attends over them (zero keys and values)."""
+    B, Sq, K, G, D = q.shape
+    Skv = k.shape[1]
+    bk = min(block_kv, Skv)
+    nkv = -(-Skv // bk)
+    pad = nkv * bk - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = F.pad(kpos, (0, pad), value=-(10 ** 9))
+    qf = q.float()
+    acc = torch.zeros((B, K, G, Sq, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((B, K, G, Sq), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    for j in range(nkv):
+        blk = slice(j * bk, (j + 1) * bk)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, k[:, blk].float()) * scale
+        mask = _band_mask(qpos, kpos[blk], window, causal)   # (Sq, bk)
+        s = torch.where(mask[None, None, None], s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p, v[:, blk].float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    # (B,K,G,Sq,Dv) -> (B,Sq,K,G,Dv)
+    return out.permute(0, 3, 1, 2, 4).to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
 # public: training / prefill attention
 # ---------------------------------------------------------------------------
 
@@ -119,25 +163,33 @@ def attention(
     *,
     window: int = GLOBAL,
     causal: bool = True,
-    memory=None,
+    memory=None,                          # cross-attention memory (B, Sm, D)
     impl: str = "chunked",
     block_kv: int = 512,
     model_axis: str = "model",
     mesh=None,
     return_kv: bool = False,
 ):
-    """Self-attention of the block; ``memory`` (cross-attention) is
-    refused.  ``return_kv``: -> (out, (k, v)), the roped keys and the
-    values it attended over, for the prefill's decode cache."""
-    if memory is not None:
-        _refuse_cross()
+    """The block's self-attention, or with ``memory`` its
+    cross-attention over the memory (no RoPE, no causal mask).
+    ``return_kv``: -> (out, (k, v)), the keys (roped in self-attention)
+    and the values it attended over: the prefill's decode cache, which
+    for cross-attention is ``init_cross_cache``'s."""
     if impl not in ("naive", "chunked", "chunked_sp", "pallas"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    q, k, v = _project_qkv(cfg, params, x, x, positions, positions, rope=True)
+    cross = memory is not None
+    xkv = memory if cross else x
+    kpos = torch.arange(xkv.shape[1], device=x.device) if cross \
+        else positions
+    q, k, v = _project_qkv(cfg, params, x, xkv, positions, kpos,
+                           rope=not cross)
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    causal = causal and not cross
     if impl == "naive":
-        out = _attend_naive(q, k, v, positions, positions, window, causal,
-                            scale)
+        out = _attend_naive(q, k, v, positions, kpos, window, causal, scale)
+    elif cross and impl in ("chunked", "chunked_sp"):
+        out = _attend_chunked(q, k, v, positions, kpos, window, causal,
+                              scale, block_kv)
     elif impl == "chunked":
         out = flash_self_attention(q, k, v, window, causal, scale,
                                    min(block_kv, k.shape[1]))
@@ -149,7 +201,7 @@ def attention(
         from repro_torch.kernels.flash_attention import ops as fa_ops
 
         out = fa_ops.flash_attention(
-            q, k, v, positions, positions, window=window, causal=causal,
+            q, k, v, positions, kpos, window=window, causal=causal,
             scale=scale)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ params["wo"]
@@ -218,3 +270,34 @@ def attention_decode(
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
     out = out.reshape(B, 1, h * hd).to(x.dtype)
     return out @ params["wo"], {"k": k_cache, "v": v_cache}
+
+
+# ---------------------------------------------------------------------------
+# cross-attention decode (enc-dec): static memory K/V, never written
+# ---------------------------------------------------------------------------
+
+
+def init_cross_cache(cfg: ArchConfig, params: dict,
+                     memory: torch.Tensor) -> dict:
+    """The memory's K/V (B, Sm, K, D), projected once, without RoPE."""
+    B, Sm, _ = memory.shape
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": (memory @ params["wk"]).reshape(B, Sm, kvh, hd),
+        "v": (memory @ params["wv"]).reshape(B, Sm, kvh, hd),
+    }
+
+
+def cross_attention_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                           cross_cache: dict) -> torch.Tensor:
+    """One token's cross-attention over the whole static memory cache."""
+    B = x.shape[0]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // kvh
+    q = (x @ params["wq"]).reshape(B, kvh, g, hd)
+    scores = torch.einsum("bkgd,bskd->bkgs", q.float(),
+                          cross_cache["k"].float()) / math.sqrt(hd)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, cross_cache["v"].float())
+    out = out.reshape(B, 1, h * hd).to(x.dtype)
+    return out @ params["wo"]

@@ -10,13 +10,22 @@ serving.
   decode_step(params, tokens, caches, pos) -> (logits, caches)
 
 Batches are dicts: train ``{"tokens", "labels"}`` (B,S) int (label -1
-is ignored), prefill ``{"tokens": (B,S) int}``; decode takes tokens
-(B,1), the caches and the absolute position ``pos``.  Caches are written
-in place by ``decode_step`` (see ``models/attention.py``).  The encoder
-/ modality-frontend configs are not ported yet and are refused by name;
-SSM and hybrid configs serve, and training them (``loss``, and
-``ssm_impl="sharded"``, the option the fused round sets) is refused by
-name until the SSM fused round is ported (ROADMAP A.6).
+is ignored), prefill ``{"tokens": (B,S) int, "frontend": (B,F,D)?}``;
+decode takes tokens (B,1), the caches and the absolute position
+``pos``.  Caches are written in place by ``decode_step`` (see
+``models/attention.py``).
+
+A config with a modality frontend takes the stub's precomputed
+embeddings as ``"frontend"``, projected by ``frontend_proj``: a
+decoder-only one (internvl2-26b) puts the patches in front of the
+text, so its decode positions start after them (``pos = F + S + i``);
+an encoder–decoder (seamless-m4t-large-v2) encodes the frames
+(``_encode``) into the memory its decoder's cross-attention reads, and
+its decode caches hold that memory's K/V.  A batch's ``"frontend"`` is
+ignored for a config without a frontend, as in the JAX package.  SSM,
+hybrid, frontend and encoder configs serve; training them (``loss``,
+and ``ssm_impl="sharded"``, the option the fused round sets) is refused
+by name until their fused rounds are ported (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -40,15 +49,10 @@ MOE_AUX_WEIGHT = 0.01
 
 class LM:
     def __init__(self, cfg: ArchConfig, opts: Optional[ModelOptions] = None):
-        if cfg.encoder_layers or cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder and modality-frontend configs are not "
-                "ported yet (ROADMAP A.6)")
         self.cfg = cfg
         self.opts = opts or ModelOptions()
         self.specs = tfm.layer_specs(cfg)
-        for _, spec in tfm.segment_specs(self.specs):
-            tfm.check_block(cfg, spec)
+        self.enc_specs = tfm.encoder_specs(cfg)
         self.has_ssm = any(s.kind in ("ssm", "hybrid") for s in self.specs)
         if self.has_ssm and self.opts.ssm_impl == "sharded":
             raise NotImplementedError(
@@ -69,6 +73,16 @@ class LM:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, (cfg.d_model, vp), self.dtype)
+        if self.enc_specs:
+            params["encoder"] = {
+                "segments": tfm.init_stack(gen, cfg, self.enc_specs,
+                                           self.dtype),
+                "final_norm": init_rmsnorm(cfg.d_model, self.dtype,
+                                           gen.device),
+            }
+        if cfg.frontend:
+            params["frontend_proj"] = dense_init(
+                gen, (cfg.d_model, cfg.d_model), self.dtype)
         return params
 
     # ------------------------------------------------------------------
@@ -87,27 +101,59 @@ class LM:
                           device=x.device)
         return (x * mult).to(self.dtype)
 
-    def _forward(self, params, tokens, collect_cache=False):
+    def _project_frontend(self, params, frontend) -> torch.Tensor:
+        """The stub's embeddings (B, F, D), in the model's dtype, through
+        ``frontend_proj`` (not scaled by sqrt(d))."""
+        if frontend is None:
+            raise ValueError(f"{self.cfg.name} takes the stub's "
+                             f"{self.cfg.frontend} embeddings as the "
+                             "batch's 'frontend' (B, F, d_model)")
+        w = params["frontend_proj"]
+        return torch.as_tensor(frontend, device=w.device).to(self.dtype) @ w
+
+    def _encode(self, params, frontend) -> torch.Tensor:
+        """The encoder over the stub's frame embeddings -> memory (B,F,D)."""
+        x = self._project_frontend(params, frontend)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _, _ = tfm.apply_stack(self.cfg, params["encoder"]["segments"],
+                                  self.enc_specs, self.opts, x, positions)
+        return rmsnorm(params["encoder"]["final_norm"], x, self.cfg.norm_eps)
+
+    def _embed_inputs(self, params, tokens, frontend):
+        """-> (the token embeddings with a decoder-only model's patch
+        embeddings in front, the number of patches)."""
         x = self._embed(params, tokens)
+        if not self.cfg.frontend or self.enc_specs:
+            return x, 0
+        fx = self._project_frontend(params, frontend)
+        return torch.cat([fx, x], dim=1), fx.shape[1]
+
+    def _forward(self, params, tokens, frontend=None, collect_cache=False):
+        """-> (hidden, aux, caches, the number of patches in front)."""
+        memory = self._encode(params, frontend) if self.enc_specs else None
+        x, n_front = self._embed_inputs(params, tokens, frontend)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux, caches = tfm.apply_stack(
             self.cfg, params["segments"], self.specs, self.opts,
-            x, positions, collect_cache=collect_cache,
+            x, positions, memory=memory, collect_cache=collect_cache,
         )
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return x, aux, caches
+        return x, aux, caches, n_front
 
     # ------------------------------------------------------------------
     def loss(self, params, batch) -> Tuple[torch.Tensor,
                                            Dict[str, torch.Tensor]]:
-        if batch.get("frontend") is not None:
-            raise NotImplementedError("frontend embeddings are not ported "
-                                      "yet (ROADMAP A.6)")
+        if self.cfg.frontend or self.enc_specs:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training frontend and encoder-decoder "
+                "configs is not ported yet (ROADMAP A.6, training)")
         if self.has_ssm:
             raise NotImplementedError(
                 f"{self.cfg.name}: training SSM and hybrid blocks is not "
                 "ported yet (ROADMAP A.6)")
-        hidden, aux, _ = self._forward(params, batch["tokens"])
+        # a batch's "frontend" is ignored here, as without a frontend in
+        # the JAX package
+        hidden, aux, _, _ = self._forward(params, batch["tokens"])
         w, tied = self._unembed_w(params)
         labels = torch.as_tensor(batch["labels"], device=hidden.device)
         ce = chunked_lm_loss_sharded(
@@ -119,12 +165,12 @@ class LM:
 
     # ------------------------------------------------------------------
     def prefill(self, params, batch):
-        """-> (logits (B,1,V) fp32 of the last position, caches)."""
-        if batch.get("frontend") is not None:
-            raise NotImplementedError("frontend embeddings are not ported "
-                                      "yet (ROADMAP A.6)")
-        hidden, _, caches = self._forward(params, batch["tokens"],
-                                          collect_cache=True)
+        """-> (logits (B,1,V) fp32 of the last position, caches).  A
+        decoder-only frontend's patches take positions 0 .. F - 1, so the
+        first decode step is at ``pos = F + S``."""
+        hidden, _, caches, _ = self._forward(
+            params, batch["tokens"], batch.get("frontend"),
+            collect_cache=True)
         w, tied = self._unembed_w(params)
         logits = decode_logits(
             hidden[:, -1:], w, vocab=self.cfg.vocab_size, tied=tied,
@@ -134,9 +180,12 @@ class LM:
 
     # ------------------------------------------------------------------
     def init_decode(self, batch: int, capacity: int, device: Any = None):
-        """Empty ring caches on ``device`` (None: the card)."""
+        """Empty ring caches on ``device`` (None: the card); an
+        encoder–decoder's cross caches hold ``frontend_tokens`` rows."""
+        mem_len = self.cfg.frontend_tokens if self.enc_specs else 0
         return tfm.init_stack_cache(self.cfg, self.specs, batch, capacity,
-                                    self.dtype, resolve_device(device))
+                                    self.dtype, resolve_device(device),
+                                    mem_len)
 
     def decode_step(self, params, tokens, caches, pos):
         """tokens (B,1) -> (logits (B,1,V) fp32, caches written in place)."""

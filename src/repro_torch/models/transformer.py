@@ -1,8 +1,8 @@
-"""Decoder stack: dense, GQA and MLA attention with a dense or MoE
-feed-forward, Mamba SSM blocks, and hybrid attention + SSM blocks.
+"""Decoder and encoder stacks: dense, GQA and MLA attention with a dense
+or MoE feed-forward, Mamba SSM blocks, hybrid attention + SSM blocks,
+and the encoder–decoder's blocks.
 
-The JAX package's ``models/transformer.py`` for the decoder blocks
-without cross-attention.  Layers are grouped into *segments*: maximal
+The JAX package's ``models/transformer.py``.  Layers are grouped into *segments*: maximal
 runs of layers with one static :class:`LayerSpec`.  A segment's params
 keep the JAX layout — each leaf stacked on a leading layer axis, as
 ``jax.vmap`` builds it — and the JAX package's ``lax.scan`` over that
@@ -22,16 +22,21 @@ of ``dense_d_ff``.  An SSM layer (``cfg.attention_free``) is
 block on the same normed input and adds the mean of the two
 RMS-normed branches before its FFN.  Their decode state, ``{"h",
 "conv"}``, comes from the prefill's own scan (the JAX package scans a
-second time).  Cross-attention blocks are refused by name.
+second time).  An encoder layer (``encoder_specs``) is a self-attention
+block without a causal mask; a decoder layer of an encoder–decoder
+(``spec.cross``) adds cross-attention over the encoder's output between
+its attention and its FFN, and its decode cache holds the memory's K/V
+(``"cross"``), made once by the prefill and never written at decode.
 
 Param tree:
   {"embed": (V,D), "segments": [stacked dict], "final_norm": {...},
-   "lm_head": (D,V)?}
+   "lm_head": (D,V)?, "encoder": {"segments", "final_norm"}?,
+   "frontend_proj": (D,D)?}
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -76,10 +81,10 @@ class ModelOptions:
     prefill_cache_capacity: int = 0
 
 
-def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
+def layer_specs(cfg: ArchConfig, *, decoder: bool = True) -> List[LayerSpec]:
     windows = cfg.layer_windows()
     moe_flags = cfg.moe_layer_flags()
-    cross = cfg.encoder_layers > 0
+    cross = decoder and cfg.encoder_layers > 0
     out = []
     for i in range(cfg.num_layers):
         if cfg.attention_free:
@@ -91,6 +96,12 @@ def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
     return out
 
 
+def encoder_specs(cfg: ArchConfig) -> List[LayerSpec]:
+    """The encoder's layers: global self-attention without a causal mask."""
+    return [LayerSpec("attn", GLOBAL, False, False, False)
+            for _ in range(cfg.encoder_layers)]
+
+
 def segment_specs(specs: List[LayerSpec]) -> List[Tuple[int, LayerSpec]]:
     """Run-length encode consecutive identical specs."""
     segs: List[Tuple[int, LayerSpec]] = []
@@ -100,13 +111,6 @@ def segment_specs(specs: List[LayerSpec]) -> List[Tuple[int, LayerSpec]]:
         else:
             segs.append((1, s))
     return segs
-
-
-def check_block(cfg: ArchConfig, spec: LayerSpec) -> None:
-    """Refuse, naming its ROADMAP item, a block the port does not run."""
-    if spec.cross:
-        raise NotImplementedError(f"{cfg.name}: cross-attention (enc-dec) "
-                                  "blocks are not ported yet (ROADMAP A.6)")
 
 
 def _stack(trees: List[Any]) -> Any:
@@ -146,6 +150,9 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, d, dtype)
         p["branch_norm_attn"] = init_rmsnorm(d, dtype, gen.device)
         p["branch_norm_ssm"] = init_rmsnorm(d, dtype, gen.device)
+    if spec.cross:
+        p["ln_cross"] = init_rmsnorm(d, dtype, gen.device)
+        p["cross"] = attn_mod.init_attention(gen, cfg, dtype, cross=True)
     p["ln2"] = init_rmsnorm(d, dtype, gen.device)
     if spec.moe:
         p["moe"] = moe_mod.init_moe(gen, cfg, dtype)
@@ -176,7 +183,6 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, specs: List[LayerSpec],
     """-> list of stacked per-segment param trees."""
     seg_params = []
     for count, spec in segment_specs(specs):
-        check_block(cfg, spec)
         seg_params.append(_init_stacked(
             count, lambda: _init_block(gen, cfg, spec, dtype)))
     return seg_params
@@ -199,8 +205,10 @@ def _feed_forward(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
 
 def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
                  params: dict, x: torch.Tensor, positions: torch.Tensor,
-                 collect_cache: bool, route=None):
-    """-> (x, aux or None, cache_or_None).  ``route``: an MoE layer's
+                 memory: Optional[torch.Tensor], collect_cache: bool,
+                 route=None):
+    """-> (x, aux or None, cache_or_None).  ``memory``: the encoder's
+    output, for a layer with cross-attention; ``route``: an MoE layer's
     ``moe.Route`` under remat."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if spec.kind == "ssm":
@@ -235,6 +243,19 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
             s, cache_out["ssm"] = s
         a = _merge_branches(cfg, params, a, s)
     x = x + a
+    if spec.cross:
+        # plain attention over a short memory, as the JAX package
+        hc = rmsnorm(params["ln_cross"], x, cfg.norm_eps)
+        c = attn_mod.attention(
+            cfg, params["cross"], hc, positions, memory=memory,
+            impl="naive" if memory.shape[1] <= 1024 else opts.attn_impl,
+            return_kv=collect_cache)
+        if collect_cache:
+            # the memory's K/V as the attention projected them: the
+            # static cross cache (init_cross_cache's)
+            c, (ck, cv) = c
+            cache_out["cross"] = {"k": ck, "v": cv}
+        x = x + c
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     y, aux = _feed_forward(cfg, spec, opts, params, h2, route)
     return x + y, aux, cache_out
@@ -280,7 +301,8 @@ def _attn_cache_from_prefill(cfg, spec, kv, cap):
 def _decode_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
                   params: dict, x: torch.Tensor, cache: dict,
                   pos: int) -> torch.Tensor:
-    """One layer's decode step; writes the layer's cache in place."""
+    """One layer's decode step; writes the layer's cache in place (its
+    cross cache, if any, is only read)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if spec.kind == "ssm":
         return x + ssm_mod.ssm_decode(cfg, params["ssm"], h, cache)[0]
@@ -293,13 +315,17 @@ def _decode_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
         s, _ = ssm_mod.ssm_decode(cfg, params["ssm"], h, cache["ssm"])
         a = _merge_branches(cfg, params, a, s)
     x = x + a
+    if spec.cross:
+        hc = rmsnorm(params["ln_cross"], x, cfg.norm_eps)
+        x = x + attn_mod.cross_attention_decode(cfg, params["cross"], hc,
+                                                cache["cross"])
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     return x + _feed_forward(cfg, spec, opts, params, h2)[0]
 
 
 def init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
-                     capacity: int, dtype: torch.dtype, device) -> dict:
-    check_block(cfg, spec)
+                     capacity: int, dtype: torch.dtype, device,
+                     memory_len: int = 0) -> dict:
     if spec.kind == "ssm":
         return ssm_mod.init_ssm_cache(cfg, cfg.d_model, batch, dtype, device)
     if cfg.mla is not None:
@@ -310,6 +336,10 @@ def init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
     if spec.kind == "hybrid":
         c["ssm"] = ssm_mod.init_ssm_cache(cfg, cfg.d_model, batch, dtype,
                                           device)
+    if spec.cross:
+        shape = (batch, memory_len, cfg.num_kv_heads, cfg.head_dim)
+        c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}
     return c
 
 
@@ -320,9 +350,12 @@ def init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
 
 def apply_stack(cfg: ArchConfig, seg_params: List[Any],
                 specs: List[LayerSpec], opts: ModelOptions, x: torch.Tensor,
-                positions: torch.Tensor, collect_cache: bool = False):
+                positions: torch.Tensor,
+                memory: Optional[torch.Tensor] = None,
+                collect_cache: bool = False):
     """-> (x, aux (the MoE layers' load-balance losses summed; 0 without
-    MoE), caches_per_segment | None)."""
+    MoE), caches_per_segment | None).  ``memory``: the encoder's output,
+    for the cross-attention layers of an encoder–decoder."""
     from torch.utils.checkpoint import checkpoint
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -331,7 +364,7 @@ def apply_stack(cfg: ArchConfig, seg_params: List[Any],
 
         def body(layer_params, xx, route=None, spec=spec):
             return _apply_block(cfg, spec, opts, layer_params, xx, positions,
-                                collect_cache, route)
+                                memory, collect_cache, route)
 
         seg_cache = []
         for layer_params in _layers(sp):
@@ -364,10 +397,14 @@ def decode_stack(cfg: ArchConfig, seg_params: List[Any],
 
 
 def init_stack_cache(cfg: ArchConfig, specs: List[LayerSpec], batch: int,
-                     capacity: int, dtype: torch.dtype, device) -> List[Any]:
+                     capacity: int, dtype: torch.dtype, device,
+                     memory_len: int = 0) -> List[Any]:
+    """Empty decode caches; a cross-attention layer's holds ``memory_len``
+    rows of the memory's K/V."""
     caches = []
     for count, spec in segment_specs(specs):
-        one = init_block_cache(cfg, spec, batch, capacity, dtype, device)
+        one = init_block_cache(cfg, spec, batch, capacity, dtype, device,
+                               memory_len)
         caches.append(tree_map(
             lambda a: a.expand((count,) + tuple(a.shape)).clone(), one))
     return caches

@@ -4,7 +4,8 @@ package's.
 Inputs are made from a seed with numpy and go through both packages:
 the JAX kernel in interpret mode (``impl="pallas_interpret"``, 64-row
 tiles, as its own kernel tests run it), the port through its plain
-PyTorch version.  Shapes and tolerances are those of
+PyTorch version, each case causal and not (seamless-m4t-large-v2's
+encoder attends without a causal mask).  Shapes and tolerances are those of
 ``tests/test_kernels.py:112-136``: rtol = atol = 2e-6 in fp32 (fp32
 sums in another order), 2e-2 in bf16 and fp16 (one 16-bit rounding of
 the output), plus the head dims of the port's configs (120 and 256) and
@@ -43,6 +44,9 @@ WIDE_SHAPES = [(1, 333, 2, 2, 120, 100), (1, 200, 1, 2, 256, -1)]
 #: hymba-1.5b's odd group count: 25 query heads over 5 KV heads, D 64,
 #: a sliding window crossed by the sequence
 HYMBA_SHAPE = (1, 256, 5, 5, 64, 64)
+#: every JAX-against-port case runs causal and not
+CAUSAL = pytest.mark.parametrize("causal", [True, False],
+                                 ids=["causal", "noncausal"])
 
 
 def _both(x: np.ndarray, dtype: str):
@@ -65,14 +69,16 @@ def _f32(t):
         else np.asarray(t, np.float32)
 
 
+@CAUSAL
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("B,S,K,G,D,window", SHAPES)
-def test_plain_flash_matches_jax_pallas_kernel(B, S, K, G, D, window, dtype):
+def test_plain_flash_matches_jax_pallas_kernel(B, S, K, G, D, window, dtype,
+                                               causal):
     (qj, qt), (kj, kt), (vj, vt) = _qkv(B, S, K, G, D, dtype)
     scale = D ** -0.5
-    want = jax_flash(qj, kj, vj, window=window, causal=True, scale=scale,
+    want = jax_flash(qj, kj, vj, window=window, causal=causal, scale=scale,
                      impl="pallas_interpret", bq=64, bk=64)
-    got = flash_attention(qt, kt, vt, window=window, causal=True,
+    got = flash_attention(qt, kt, vt, window=window, causal=causal,
                           scale=scale, impl="torch")
     assert got.dtype == vt.dtype and got.shape == (B, S, K, G, D)
     tol = DTYPES[dtype][2]
@@ -81,42 +87,47 @@ def test_plain_flash_matches_jax_pallas_kernel(B, S, K, G, D, window, dtype):
     ref = attention_ref(
         qt.float().reshape(B, S, K * G, D).transpose(1, 2),
         kt.float().transpose(1, 2), vt.float().transpose(1, 2),
-        scale=scale, window=window, causal=True,
+        scale=scale, window=window, causal=causal,
     ).transpose(1, 2).reshape(B, S, K, G, D)
     np.testing.assert_allclose(ref.numpy(), _f32(want), rtol=tol, atol=tol)
 
 
-def _against_jax(B, S, K, G, D, window, dtype, **blocks):
+def _against_jax(B, S, K, G, D, window, dtype, causal, **blocks):
     (qj, qt), (kj, kt), (vj, vt) = _qkv(B, S, K, G, D, dtype)
     scale = D ** -0.5
-    want = jax_flash(qj, kj, vj, window=window, causal=True, scale=scale,
+    want = jax_flash(qj, kj, vj, window=window, causal=causal, scale=scale,
                      impl="pallas_interpret", **blocks)
-    got = flash_attention(qt, kt, vt, window=window, causal=True,
+    got = flash_attention(qt, kt, vt, window=window, causal=causal,
                           scale=scale, impl="torch")
     assert got.dtype == vt.dtype and got.shape == (B, S, K, G, D)
     tol = DTYPES.get(dtype, FP16)[2]
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 
+@CAUSAL
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("B,S,K,G,D,window", WIDE_SHAPES)
 def test_plain_flash_matches_jax_pallas_kernel_at_wide_heads(B, S, K, G, D,
-                                                             window, dtype):
+                                                             window, dtype,
+                                                             causal):
     """The JAX kernel with its default blocks (bq 128, and bk 512, which
     covers S): in interpret mode a ragged key block reads the
     interpreter's NaN padding."""
-    _against_jax(B, S, K, G, D, window, dtype)
+    _against_jax(B, S, K, G, D, window, dtype, causal)
 
 
+@CAUSAL
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_plain_flash_matches_jax_pallas_kernel_at_hymbas_odd_group(dtype):
-    _against_jax(*HYMBA_SHAPE, dtype, bq=64, bk=64)
+def test_plain_flash_matches_jax_pallas_kernel_at_hymbas_odd_group(dtype,
+                                                                   causal):
+    _against_jax(*HYMBA_SHAPE, dtype, causal, bq=64, bk=64)
 
 
+@CAUSAL
 @pytest.mark.parametrize("B,S,K,G,D,window", [SHAPES[1], SHAPES[3]])
 def test_plain_flash_matches_jax_pallas_kernel_in_fp16(B, S, K, G, D,
-                                                       window):
-    _against_jax(B, S, K, G, D, window, "float16", bq=64, bk=64)
+                                                       window, causal):
+    _against_jax(B, S, K, G, D, window, "float16", causal, bq=64, bk=64)
 
 
 @pytest.mark.parametrize("dim", [32, 64, 120, 128, 256])

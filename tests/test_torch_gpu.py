@@ -1,5 +1,6 @@
-"""The CUDA kernels (fedavg, the three flash-attention forwards, int8
-quantize and dequantize) against their plain PyTorch versions, the MoE
+"""The CUDA kernels (fedavg, the three flash-attention forwards, causal
+and not, int8 quantize and dequantize) against their plain PyTorch
+versions, the encoder-decoder and frontend LMs against the CPU, the MoE
 ep block forward and backward, the Mamba block and its decode, and the
 fused int8 round against the CPU, on the card.  Marked ``gpu``: they
 skip on a host without a CUDA device or ``nvcc``.  Run them on the card
@@ -120,10 +121,25 @@ FLASH_SHAPES = [
     (1, 2000, 5, 5, 64, 1024)]
 
 
-def _flash_inputs(card, wire, B, S, K, G, D):
+#: seamless-m4t-large-v2's encoder self-attention: 16 heads, MHA, D 64
+#: over its 512 frames, without a causal mask
+SEAMLESS_ENCODER = (4, 512, 16, 1, 64, -1)
+#: (kernel, dtype, element offset): an offset of 1 puts a 16-bit tensor
+#: off 16 bytes, which only the CUDA-core kernel takes
+VARIANT_INPUTS = [(FLASH_WGMMA, "bfloat16", 0), (FLASH_WGMMA, "float16", 0),
+                  (FLASH_TF32X3, "float32", 0), (FLASH_SIMT, "bfloat16", 1)]
+
+
+def _flash_inputs(card, wire, B, S, K, G, D, offset=0):
     g = torch.Generator(device=card).manual_seed(S)
-    mk = lambda *shape: torch.randn(shape, generator=g,
-                                    device=card).to(WIRE[wire])
+
+    def mk(*shape):
+        n = 1
+        for x in shape:
+            n *= x
+        buf = torch.randn(n + offset, generator=g, device=card)
+        return buf.to(WIRE[wire])[offset:].view(shape)
+
     return mk(B, S, K, G, D), mk(B, S, K, D), mk(B, S, K, D)
 
 
@@ -164,6 +180,42 @@ def test_cuda_core_flash_kernel_matches_plain_version_in_fp32(card, B, S, K,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,K,G,D,window", [SEAMLESS_ENCODER]
+                         + FLASH_SHAPES)
+@pytest.mark.parametrize("kern,wire,offset", VARIANT_INPUTS,
+                         ids=["wgmma-bf16", "wgmma-fp16", "tf32x3-fp32",
+                              "simt-bf16-off16"])
+def test_noncausal_flash_kernel_matches_plain_version(card, B, S, K, G, D,
+                                                      window, kern, wire,
+                                                      offset):
+    """``causal=False`` (an encoder's self-attention) on each of the
+    three kernels, chosen by ``flash_variant``, at seamless's encoder
+    shape and the causal cases' shapes."""
+    q, k, v = _flash_inputs(card, wire, B, S, K, G, D, offset)
+    kw = dict(window=window, causal=False, scale=D ** -0.5)
+    before = [kn.launches for kn in FA_KERNELS]
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention(q, k, v, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert [kn.launches - b for kn, b in zip(FA_KERNELS, before)] == \
+        [int(kn is kern) for kn in FA_KERNELS]
+    tol = 2e-6 if wire == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_wrapper_refuses_a_memory_of_another_length(card):
+    """Cross-attention over a memory longer than the queries: the
+    kernels compute self-attention over one length."""
+    q = torch.zeros(1, 7, 2, 2, 64, device=card, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1100, 2, 64, device=card, dtype=torch.bfloat16)
+    before = [kn.launches for kn in FA_KERNELS]
+    with pytest.raises(ValueError, match="self-attention over one length"):
+        flash_attention(q, kv, kv, causal=False, scale=0.125)
+    assert [kn.launches for kn in FA_KERNELS] == before
+
+
+@pytest.mark.gpu
 def test_flash_wrapper_refuses_head_dims_over_256(card):
     q = torch.zeros(1, 8, 1, 1, 320, device=card)
     k = torch.zeros(1, 8, 1, 320, device=card)
@@ -192,6 +244,49 @@ def test_lm_prefill_on_the_card_matches_the_cpu(card):
         [2 * int(kn is FLASH_TF32X3) for kn in FA_KERNELS]
     want, _ = model.prefill(params, {"tokens": toks})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["internvl2-26b", "seamless-m4t-large-v2"])
+def test_frontend_lm_serve_on_the_card_matches_the_cpu(card, arch):
+    """Reduced fp32: prefill with the stub's embeddings, then two decode
+    steps (internvl's positions after its patches; seamless's cross
+    cache read), the card against the CPU.  Flash launches: one a
+    decoder layer, and one an encoder layer (non-causal)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[arch].reduced(dtype="float32")
+    off = 0 if cfg.encoder_layers else cfg.frontend_tokens
+    model = build_model(cfg, ModelOptions(
+        attn_impl="pallas", remat=False,
+        prefill_cache_capacity=off + 150 + 2 + 8))
+    params = model.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, 256, (2, 150), generator=gen,
+                                     dtype=torch.int32),
+             "frontend": 0.02 * torch.randn(2, cfg.frontend_tokens,
+                                            cfg.d_model, generator=gen)}
+
+    def loop(p, b):
+        logits, caches = model.prefill(p, b)
+        out = [logits]
+        for i in range(2):
+            tok = out[-1][:, -1].argmax(-1)[:, None]
+            out.append(model.decode_step(p, tok, caches, off + 150 + i)[0])
+        return torch.cat(out, 1)
+
+    before = [kern.launches for kern in FA_KERNELS]
+    got = loop(tree_map(lambda t: t.to(card), params),
+               {k: t.to(card) for k, t in batch.items()})
+    torch.cuda.synchronize()
+    n = cfg.num_layers + cfg.encoder_layers
+    assert [kn.launches - b for kn, b in zip(FA_KERNELS, before)] == \
+        [n * int(kn is FLASH_TF32X3) for kn in FA_KERNELS]
+    torch.testing.assert_close(got.cpu(), loop(params, batch), rtol=1e-4,
+                               atol=1e-4)
 
 
 @pytest.mark.gpu

@@ -244,18 +244,21 @@ def test_a_4d_leaf_that_is_not_a_conv_kernel_is_never_permuted():
 # what is not ported is refused by name
 # ---------------------------------------------------------------------------
 
-#: MLA and MoE archs, and the SSM and hybrid ones, refused until their
-#: blocks were ported: their cases now check that they build and prefill
+#: MLA and MoE archs, the SSM and hybrid ones, and the frontend and
+#: encoder-decoder ones, refused until their blocks were ported: their
+#: cases now check that they build and prefill
 PORTED_SINCE = {"deepseek-v2-lite-16b", "kimi-k2-1t-a32b",
-                "falcon-mamba-7b", "hymba-1.5b"}
+                "falcon-mamba-7b", "hymba-1.5b", "seamless-m4t-large-v2",
+                "internvl2-26b"}
 
 
 def _builds_and_prefills(cfg, **over):
     model = build_model(cfg, _opts(ModelOptions, mesh=make_host_mesh(),
                                    **over))
-    logits, caches = model.prefill(model.init(0, device="cpu"),
-                                   {"tokens": torch.zeros(1, 4,
-                                                          dtype=torch.int32)})
+    batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
+    if cfg.frontend:
+        batch["frontend"] = torch.zeros(1, cfg.frontend_tokens, cfg.d_model)
+    logits, caches = model.prefill(model.init(0, device="cpu"), batch)
     assert logits.shape == (1, 1, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
     assert len(caches) == len(model.init_decode(1, 8, device="cpu"))
@@ -303,16 +306,28 @@ def test_unported_options_are_refused(over, item):
 
 
 def test_training_moe_and_cross_attention_are_refused():
+    """A frontend handed to a config without one is ignored by prefill
+    and loss, as in the JAX package; training a frontend or
+    encoder-decoder config is refused by name (ROADMAP A.6)."""
     cfg = TORCH_ARCHS["llama3.2-3b"].reduced(dtype="float32")
     model = build_model(cfg, _opts(ModelOptions))
     params = model.init(0, device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        model.loss(params, {"tokens": toks, "labels": toks,
-                            "frontend": torch.zeros(1, 2, 64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        model.prefill(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                               "frontend": torch.zeros(1, 2, 64)})
+    front = torch.ones(1, 2, 64)
+    loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
+    assert torch.equal(model.loss(params, {"tokens": toks, "labels": toks,
+                                           "frontend": front})[0], loss)
+    logits, _ = model.prefill(params, {"tokens": toks})
+    assert torch.equal(model.prefill(params, {"tokens": toks,
+                                              "frontend": front})[0], logits)
+    for arch in ("internvl2-26b", "seamless-m4t-large-v2"):
+        fcfg = TORCH_ARCHS[arch].reduced(dtype="float32")
+        fmodel = build_model(fcfg, _opts(ModelOptions))
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP A.6, training"):
+            fmodel.loss(fmodel.init(0, device="cpu"), {
+                "tokens": toks, "labels": toks,
+                "frontend": torch.zeros(1, fcfg.frontend_tokens, 64)})
     # MoE blocks serve and, since the MoE fused round is ported, train:
     # a dense arch given an MoE config builds, prefills and takes a step
     moe = cfg.__class__(**{**cfg.__dict__, "moe": MoEConfig(
@@ -326,13 +341,15 @@ def test_training_moe_and_cross_attention_are_refused():
     _, _, metrics = step(moe_params, init_server_state("fedavg", moe_params),
                          {"tokens": toks, "labels": toks})
     assert bool(torch.isfinite(metrics["loss"]))
-    layer = tattn.init_attention(torch.Generator().manual_seed(0), cfg,
-                                 torch.float32)
+    # cross-attention builds and runs (tests/test_torch_frontend.py holds
+    # it against the JAX package): no q/k norm on a cross layer
+    gemma = TORCH_ARCHS["gemma3-4b"].reduced(dtype="float32")
+    layer = tattn.init_attention(torch.Generator().manual_seed(0), gemma,
+                                 torch.float32, cross=True)
+    assert "q_norm" not in layer and "q_norm" in tattn.init_attention(
+        torch.Generator().manual_seed(0), gemma, torch.float32)
     x = torch.zeros(1, 4, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        tattn.attention(cfg, layer, x, torch.arange(4), memory=x,
-                        impl="naive")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        tattn.init_attention(torch.Generator(), cfg, torch.float32,
-                             cross=True)
+    out = tattn.attention(gemma, layer, x, torch.arange(4),
+                          memory=torch.zeros(1, 6, 64), impl="naive")
+    assert out.shape == (1, 4, 64)
     assert sharded_vocab.padded_vocab(cfg.vocab_size) == 256

@@ -98,8 +98,9 @@ on any fault; it imports nothing of the JAX package.  Phases:
 10. quant: the int8 quantize and dequantize CUDA kernels against their
    plain versions, bit for bit (q, scales, dequantized fp32 and bf16)
    and within half a scale of the input, at the JAX package's
-   kernel-test sizes, an all-zero input, bf16 input and row widths 64
-   and 200; then at the fused round's largest leaf, the (128256, 3072)
+   kernel-test sizes, an all-zero input, bf16 input, row widths 64,
+   200 and 16 (an SSM's ``A_log``, phase 23) and leaves of 3200 and 8192
+   (``D`` and ``dt_bias``); then at the fused round's largest leaf, the (128256, 3072)
    fp32 embedding delta, timed against the plain versions and, for
    dequantize, one ``torch.mul``.
 11. fused round: full-width llama3.2-3b (bf16, random params from seed
@@ -267,13 +268,49 @@ on any fault; it imports nothing of the JAX package.  Phases:
    decoded without its offset; seamless's encoder run causal); and the
    reduced configs' serve loop on the card against the CPU within
    ``LM_PARITY_ATOL`` with the same greedy tokens.
+22. frontend and encoder-decoder fused round, run after phase 21 (its
+   models are freed): internvl2-26b at full width cut to 6 of 48 layers
+   (3.52 B params; 8 would reckon at about 61 GB) and
+   seamless-m4t-large-v2 at full width and depth (1.77 B), each in bf16
+   with random params from seed 0, through phase 11's round with
+   ``build_train_step``'s options (``chunked_sp``: the plain flash VJP,
+   non-causal in the encoder; cross-attention over 512 rows plain;
+   remat), a 2-pod mesh, each pod 4 sequences in 2 microbatches: 256
+   stub patches and 512 tokens for internvl, 512 stub frames into the
+   encoder and 512 target tokens for seamless (frontend ``normal(0,
+   0.02)`` from a seed, added to the batch by the caller); each freed
+   before the next (``phase_train_cell``): the tree's params against
+   ``param_count()`` (plus the norms it leaves out) and the peak
+   reckoned at phase 11's bytes a param in the same run; one int8
+   round with every launch count zeroed just before and read just after
+   (quantize and dequantize once per leaf and pod, no other kernel); one
+   ``compress="none"`` round from the same params (the int8 params
+   within 5 % relative of these); a warm int8 round, bit-equal to the
+   first; one under ``torch.profiler`` split into the flash VJP, the
+   SSM scan, the quantize pair, other matrix products and the rest
+   (``train_split``) with the kernel count and the idle share.  Then
+   each reduced int8 round on the card against the CPU within the
+   two-part limit, and above it with one pod counted twice and with
+   internvl's CE taken one position early (the last patch and the text
+   but its last token) or seamless's memory detached from the encoder's
+   gradient.
+23. SSM and hybrid fused round, run after phase 22: falcon-mamba-7b and
+   hymba-1.5b at full width cut to 1 and 2 layers (hymba's layer 0
+   global, layer 1 a window of 1024), in bf16, through the same round
+   and checks as phase 22 with the sharded scan (``ssm_scan_sharded``,
+   the sequential in-chunk form under a checkpointed chunk body: about
+   124 k dispatched ops a layer a round, host-bound, hence the depth);
+   then each reduced round (chunks of 16, 4 a sequence) on the card
+   against the CPU, and above the limit with one pod counted twice and
+   with the scan's state reset to zero at every chunk boundary.
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
 phase 14 in netd and at the controller, phase 15, phase 16, phase 19,
-phase 20, phase 21; each flash kernel its launches on every path that
-runs attention, phases 20's and 21's models included, and its
-non-causal case (phase 6, seamless's encoder shape); each quantize
-kernel its launches in phases 11, 19, 20 and 21.
+phase 20, phase 21, each arch's round in phases 22 and 23; each flash
+kernel its launches on every path that runs attention, phases 20's to
+23's models included, and its non-causal case (phase 6, seamless's
+encoder shape); each quantize kernel its launches in phases 11 and 19
+to 23.
 """
 from __future__ import annotations
 
@@ -316,7 +353,7 @@ from repro_torch.data.loader import CohortTokenLoader  # noqa: E402
 from repro_torch.data.synthetic import TokenTaskStream  # noqa: E402
 from repro_torch.fl import compression  # noqa: E402
 from repro_torch.fl.round import (AggregationConfig,  # noqa: E402
-                                  accumulate_updates)
+                                  accumulate_updates, train_options)
 from repro_torch.fl.server import (apply_server_opt,  # noqa: E402
                                   init_server_state)
 from repro_torch.kernels.fedavg import fedavg as fed  # noqa: E402
@@ -1331,29 +1368,102 @@ def is_gemm(name: str) -> bool:
     return any(t in name for t in GEMM_NAMES)
 
 
+def innermost(intervals, queries):
+    """One thread's call stack: ``intervals`` (start, end, value), nested
+    as calls nest; ``queries`` (t, key).  -> {key: the value of the
+    innermost interval around t, or None}, in one sweep."""
+    intervals.sort(key=lambda iv: (iv[0], -iv[1]))
+    out, stack, i = {}, [], 0
+    for t, key in sorted(queries):
+        while i < len(intervals) and intervals[i][0] <= t:
+            while stack and stack[-1][1] < intervals[i][0]:
+                stack.pop()
+            stack.append(intervals[i])
+            i += 1
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        out[key] = stack[-1][2] if stack else None
+    return out
+
+
+def kernel_ranges(events, ranges):
+    """The profiler's raw (kineto) events and ``ranges`` (range label ->
+    key) -> [(kernel name, device us, its range's key or None, whether
+    its launch is in the trace)] for each
+    device event but the ranges' own spans on the device.  A kernel takes
+    the innermost range around the host op that launched it (linked
+    through the CUDA call's correlation id); failing that, a kernel
+    launched by an autograd node takes the range of the forward op the
+    node differentiates (its sequence number and forward thread), and a
+    recompute under a checkpoint, inside a backward node, takes the
+    range of its own call.  Reading the raw events, not
+    ``prof.events()``, keeps the profiler's tree of Python objects out:
+    a round of 150 k kernels spent tens of seconds building it."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    from torch.profiler import DeviceType
+
+    ops, links, kernels = {}, {}, []
+    spans = collections.defaultdict(list)     # thread -> range intervals
+    nodes = collections.defaultdict(list)     # thread -> autograd nodes
+    fwd_ops = collections.defaultdict(list)   # thread -> (t, seq) queries
+    for e in events:
+        name = e.name()
+        if _filter_name(name) or e.is_hidden_event():
+            continue
+        if e.device_type() != DeviceType.CPU:
+            if not e.is_user_annotation() and name not in ranges:
+                kernels.append((_rewrite_name(name, with_wildcard=True),
+                                (e.end_ns() - e.start_ns()) / 1e3,
+                                e.correlation_id()))
+            continue
+        th, t0, t1 = e.start_thread_id(), e.start_ns(), e.end_ns()
+        if name.startswith("cu"):     # a CUDA call: on its op's thread
+            links[e.correlation_id()] = (e.linked_correlation_id(), th, t0)
+            continue
+        ops[e.correlation_id()] = th
+        if name in ranges:
+            spans[th].append((t0, t1, ranges[name]))
+        elif name.startswith("autograd::engine::evaluate_function"):
+            nodes[th].append((t0, t1, (e.fwd_thread_id(), e.sequence_nr())))
+        elif e.sequence_nr() >= 0 and not name.startswith("autograd::"):
+            fwd_ops[th].append((t0, (th, e.sequence_nr())))
+    # the range of each forward op an autograd node may differentiate
+    forward = {}
+    for th, queries in fwd_ops.items():
+        for op, key in innermost(spans[th], queries).items():
+            if key is not None:
+                forward[op] = key
+    # each CUDA call on the thread of the op it serves
+    calls = collections.defaultdict(list)
+    for corr, (op, th, t) in links.items():
+        calls[ops.get(op, th)].append((t, corr))
+    key = {}
+    for th, queries in calls.items():
+        in_range = innermost(spans[th], queries)
+        node = innermost(nodes[th], queries)
+        for _, corr in queries:
+            key[corr] = in_range[corr] or forward.get(node[corr])
+    return [(name, us, key.get(corr), corr in links)
+            for name, us, corr in kernels]
+
+
 def range_split(fn, keys, patches, ranges, override, fallback):
     """``fn()`` once under torch.profiler, its device ms split into
     ``keys``.  ``patches``: (module or class, {function: range label})
     pairs whose functions run inside ``torch.profiler`` ranges of those
     labels; ``ranges``: range label -> key.  Each device event (a range's
     own span on the device excepted) is counted once: under
-    ``override(name)`` where that names a key, else under the innermost
-    of the ranges around the CUDA call that launched it (the host event
-    of the same correlation id; a backward kernel under the range of the
-    forward op it differentiates: the autograd node's sequence number and
-    forward thread), else under ``fallback(name)`` (so is a kernel whose
+    ``override(name)`` where that names a key, else under its range
+    (``kernel_ranges``: the innermost range around the CUDA call that
+    launched it, or for a backward kernel the range of the forward op it
+    differentiates), else under ``fallback(name)`` (so is a kernel whose
     call is not in the trace, ``unlinked_kernels``).  The events' own
     kernel lists are not used: the profiler hands a kernel to every host
     event that shares its op's id, CUPTI's "Command Buffer Full" among
     them, which counted the kernels of a host that runs ahead twice.
     -> the split with the kernel count, wall time, the device's idle
     share and the top kernels."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
-    def labelled_range(e):
-        while e is not None and e.name not in ranges:
-            e = e.cpu_parent
-        return ranges[e.name] if e is not None else None
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with contextlib.ExitStack() as stack:
@@ -1365,38 +1475,14 @@ def range_split(fn, keys, patches, ranges, override, fallback):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.events()
-    forward = {}        # (thread, sequence number) -> range of the op
-    launches = {}       # correlation id -> the CUDA call on the host
-    for e in events:
-        if e.device_type != DeviceType.CPU:
-            continue
-        if e.name.startswith("cu"):
-            launches[e.id] = e
-        elif e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
-            where = labelled_range(e)
-            if where is not None:
-                forward[e.thread, e.sequence_nr] = where
     split = dict.fromkeys(keys, 0.0)
     by_name, kernels, unlinked = collections.Counter(), 0, 0
-    for d in events:
-        # a range's span on the device's timeline is no device work
-        if d.device_type != DeviceType.CUDA or getattr(
-                d, "is_user_annotation", False) or d.name in ranges:
-            continue
-        us = d.time_range.elapsed_us()
-        by_name[d.name] += us
+    for name, us, key, linked in kernel_ranges(
+            prof.profiler.kineto_results.events(), ranges):
+        by_name[name] += us
         kernels += 1
-        call = launches.get(d.id)
-        unlinked += call is None
-        where = override(d.name) or labelled_range(call)
-        p = call
-        while where is None and p is not None:
-            if p.name.startswith("autograd::engine::evaluate_function"):
-                where = forward.get((p.fwd_thread, p.sequence_nr))
-                break
-            p = p.cpu_parent
-        split[where or fallback(d.name)] += us / 1e3
+        unlinked += not linked
+        split[override(name) or key or fallback(name)] += us / 1e3
     busy = sum(split.values())
     top = [(us / 1e3, name[:80]) for name, us in by_name.most_common(8)]
     split.update(kernels=kernels, unlinked_kernels=unlinked,
@@ -1700,7 +1786,8 @@ def quant_case(label, x, block):
 
 def phase_quant():
     """The quantize kernels at the JAX package's kernel-test sizes, an
-    all-zero input, bf16 input and row widths 64 and 200; then at the
+    all-zero input, bf16 input, row widths 64, 200 and 16 (an SSM's
+    ``A_log``) and leaves of 3200 and 8192 (``D``, ``dt_bias``); then at the
     fused round's largest delta leaf, the (128256, 3072) fp32 embedding
     (1,539,072 rows of 256), timed against the plain versions."""
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1709,7 +1796,12 @@ def phase_quant():
              ("n100", rnd(100), 256), ("n70000", rnd(70000), 256),
              ("zeros", torch.zeros(512, device="cuda"), 256),
              ("bf16", rnd(3 * 256 + 5).to(torch.bfloat16), 256),
-             ("b64", rnd(64 * 37 + 9), 64), ("b200", rnd(200 * 11), 200)]
+             ("b64", rnd(64 * 37 + 9), 64), ("b200", rnd(200 * 11), 200),
+             # the SSM rounds' leaves (phase 23): A_log's rows of N = 16
+             # (falcon-mamba-7b's 8192 a layer), and D and dt_bias, rows
+             # of d_inner (hymba-1.5b 3200, falcon-mamba-7b 8192)
+             ("b16_a_log", rnd(2 * 8192 * 16), 16),
+             ("n3200", rnd(3200), 256), ("n8192", rnd(8192), 256)]
     for label, x, block in cases:
         log("quant_case " + json.dumps(quant_case(label, x, block)))
 
@@ -1796,14 +1888,26 @@ def fused_split(fn):
     return split
 
 
+ROUND_MESH = make_debug_mesh((2, 1, 1), ("pod", "data", "model"))
+
+
+def round_agg(compress="int8"):
+    return AggregationConfig(hierarchy="hierarchical", timing="eager",
+                             compress=compress, num_microbatches=2,
+                             server_opt="fedavg")
+
+
 def round_setup(cfg, seq_len, device, compress="int8", opts=None):
-    mesh = make_debug_mesh((2, 1, 1), ("pod", "data", "model"))
-    agg = AggregationConfig(hierarchy="hierarchical", timing="eager",
-                            compress=compress, num_microbatches=2,
-                            server_opt="fedavg")
-    trainer = FusedFLTrainer(cfg, mesh, agg, opts=opts, device=device)
+    """A trainer on the 2-pod mesh and the round's batch: 8 sequences of
+    ``seq_len`` tokens and, for a frontend config, the stub's embeddings
+    ``normal(0, 0.02)`` from seed 2 under ``"frontend"``, as a caller
+    hands them over."""
+    trainer = FusedFLTrainer(cfg, ROUND_MESH, round_agg(compress),
+                             opts=opts, device=device)
     batch = CohortTokenLoader(cfg.vocab_size, seq_len=seq_len,
                               n_cohorts=4).round_batch(8, 0)
+    if cfg.frontend:
+        batch["frontend"] = front_embeddings(cfg, 8, 2, "cpu").numpy()
     return trainer, batch
 
 
@@ -1973,17 +2077,21 @@ def pod_counted_twice():
 
 def phase_round_parity(arch=LM_ARCH, faults=(("pod_counted_twice",
                                                pod_counted_twice),),
-                       label="round_parity"):
+                       label="round_parity", **opts_over):
     """Reduced ``arch`` in fp32: one hierarchical int8 round on the card
     (the kernels) against the same round on the CPU (the plain
     versions), from the same params; and on the card with each planted
-    fault (a context manager), which must land above the limit."""
+    fault (a context manager), which must land above the limit.
+    ``opts_over``: changes to ``build_train_step``'s options."""
+    t_start = time.perf_counter()
     cfg = ARCHS[arch].reduced(dtype="float32")
-    cpu, batch = round_setup(cfg, 64, "cpu")
+    opts = dataclasses.replace(train_options(cfg, ROUND_MESH, round_agg()),
+                               **opts_over) if opts_over else None
+    cpu, batch = round_setup(cfg, 64, "cpu", opts=opts)
     cpu.init(seed=0)
     p_cpu = cpu.params
     steps = pod_steps(cpu, batch)
-    card, _ = round_setup(cfg, 64, "cuda")
+    card, _ = round_setup(cfg, 64, "cuda", opts=opts)
     p_card = tree_map(lambda t: t.to("cuda"), p_cpu)
     n0 = QUANTIZE.launches
     card_rec = timed_round(card, p_card, batch)[0]
@@ -2001,7 +2109,8 @@ def phase_round_parity(arch=LM_ARCH, faults=(("pod_counted_twice",
     row = {"arch": arch, "loss_card": card_rec["loss"],
            "loss_cpu": cpu_rec["loss"], "share_over_1e-5": share,
            "worst_in_steps": worst,
-           "limit": "share <= 1e-3 and worst <= 1 step"}
+           "limit": "share <= 1e-3 and worst <= 1 step",
+           "wall_s": time.perf_counter() - t_start}
     inside = []
     for name, got in planted.items():
         f_share, f_worst, f_ok = int8_limit(got, want, steps)
@@ -2748,6 +2857,207 @@ def phase_front_serve(copy_bps):
 
 
 # ---------------------------------------------------------------------------
+# phases 22-23: the fused round of the frontend, encoder-decoder, SSM and
+# hybrid configs
+# ---------------------------------------------------------------------------
+
+#: layers in each arch's round (None: full depth), at full width.  The
+#: peaks are reckoned at the bytes a param of phase 11's round in the
+#: same run (about 14.2 on an H100: 45.76 GB for 3.21 B):
+#: internvl2-26b's 390 M a layer beside 1.14 B of untied embedding and
+#: head make 6 layers (3.52 B) about 50 GB and 8 about 61 GB;
+#: seamless-m4t-large-v2 (1.77 B) about 25 GB whole.  The SSM
+#: rounds are host-bound, not memory-bound: the sequential in-chunk scan
+#: dispatches about 124 k ops a layer a round (2 pods x 2 microbatches
+#: x 2 x 512 positions; forward, two recomputes, backward;
+#: ``tools/count_round_ops.py``), about 3 s
+#: of the host a layer-round on the card, so falcon-mamba-7b takes 1
+#: layer and hymba-1.5b 2 (layer 0 global, layer 1 a window of 1024).
+TRAIN_LAYERS = {"internvl2-26b": 6, "seamless-m4t-large-v2": None,
+                "falcon-mamba-7b": 1, "hymba-1.5b": 2}
+#: the reduced SSM rounds' chunk: 4 chunks a 64-token sequence, so a
+#: carry crosses three chunk boundaries
+PARITY_SSM_CHUNK = 16
+
+
+def train_split(fn):
+    """``fn()`` once under torch.profiler (``range_split``): device ms of
+    the flash VJP (the ``flash_vjp.*`` ranges, its products included), of
+    the SSM scan (``ssm_scan_sharded`` and its chunk bodies: their input
+    projections, recomputes and backward), of the quantize and
+    dequantize kernels, of the other matrix products and of the rest;
+    kernel count, wall time and the device's idle share."""
+    scan = {"ssm_scan_sharded": "ssm.scan", "_chunk_seq": "ssm.scan",
+            "_chunk_assoc": "ssm.scan"}
+    return range_split(
+        fn, ("flash_vjp_ms", "scan_ms", "quantize_ms", "matmul_ms",
+             "other_ms"),
+        [(ssm_mod, scan)],
+        {"flash_vjp.forward": "flash_vjp_ms",
+         "flash_vjp.backward": "flash_vjp_ms", "ssm.scan": "scan_ms"},
+        override=lambda n: ("quantize_ms" if "quantize_kernel" in n.lower()
+                            else None),
+        fallback=lambda n: "matmul_ms" if is_gemm(n) else "other_ms")
+
+
+def train_cfg(arch):
+    layers = TRAIN_LAYERS[arch]
+    cfg = ARCHS[arch]
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def phase_train_cell(arch, bytes_a_param):
+    """One config at full width (``TRAIN_LAYERS`` deep; bf16, random
+    params from seed 0) through phase 11's round with
+    ``build_train_step``'s options (``chunked_sp``, the sharded SSM scan,
+    remat): a 2-pod mesh, each pod 4 sequences of 512 tokens (behind
+    internvl's 256 stub patches; seamless's encoder over 512 stub frames)
+    in 2 microbatches.  One int8 round with every launch count zeroed
+    just before and read just after (quantize and dequantize once per
+    leaf and pod, no other kernel), one ``compress="none"`` round from
+    the same params (the int8 params within 5 % relative of these), a
+    warm int8 round bit-equal to the first, one under torch.profiler
+    (``train_split``).  ``bytes_a_param``: phase 11's peak over its
+    params, the reckoning of the peak.  -> (row, split)."""
+    cfg = train_cfg(arch)
+    t8, batch = round_setup(cfg, FUSED_SEQ, None, "int8")
+    tn, _ = round_setup(cfg, FUSED_SEQ, None, "none")
+    t0 = time.perf_counter()
+    t8.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p0 = t8.params
+    leaves = tree_leaves(p0)
+    n_params = sum(l.numel() for l in leaves)
+    extra = branch_norm_params(cfg) + encoder_norm_params(cfg)
+    if n_params != cfg.param_count() + extra:
+        raise AssertionError(f"{arch}: {n_params} params, the config counts "
+                             f"{cfg.param_count()} + {extra} norm scales")
+    rec8, cold_s, launches8, peak8 = driven_round(t8, p0, batch)
+    p8 = t8.params
+    recn, none_s, launchesn, peakn = driven_round(tn, p0, batch)
+    pn = tn.params
+    tn.params = None
+    rel = check_int8_round(arch, leaves, (rec8, p8, launches8),
+                           (recn, pn, launchesn))
+    del pn
+    others = {k: n for k, n in launches8.items()
+              if n and k not in (QUANTIZE.name, DEQUANTIZE.name)}
+    if others:
+        raise AssertionError(f"{arch}: the round launched {others}")
+    warm8, warm_s, _, _ = driven_round(t8, p0, batch)
+    twice = bits_equal_trees(p8, t8.params)
+    del p8
+    t8.params = None
+    if not twice:
+        raise AssertionError(f"{arch}: two int8 rounds from the same params "
+                             "differ")
+    split = train_split(lambda: timed_round(t8, p0, batch))
+    opts = t8.model.opts
+    row = {
+        "arch": arch, "card": device_line(), "layers": cfg.num_layers,
+        "full_depth_layers": ARCHS[arch].num_layers,
+        "encoder_layers": cfg.encoder_layers, "params": n_params,
+        "config_param_count": cfg.param_count(), "leaves": len(leaves),
+        "param_bytes": nbytes(leaves), "dtype": cfg.dtype,
+        "reckoned_peak_gb": n_params * bytes_a_param / 1e9, "pods": 2,
+        "microbatches_per_pod": 2, "seqs_per_pod": 4, "seq_len": FUSED_SEQ,
+        "frontend_tokens": cfg.frontend_tokens,
+        "opts": {k: getattr(opts, k) for k in (
+            "attn_impl", "ssm_impl", "ssm_chunk", "remat", "loss_chunk",
+            "block_kv")},
+        "init_s": init_s, "int8_cold_s": cold_s, "int8_warm_s": warm_s,
+        "none_s": none_s, "peak_mem_gb_int8": peak8 / 1e9,
+        "peak_mem_gb_none": peakn / 1e9, "int8": rec8, "none": recn,
+        "int8_warm": warm8, "int8_vs_none_rel": rel,
+        "two_int8_rounds_bit_equal": twice,
+        "kernels_a_round": split["kernels"],
+        "launches_int8": launches8, "launches_none": launchesn}
+    if cfg.ssm is not None:
+        row["scan_chunk"] = ssm_mod.scan_chunk(FUSED_SEQ, opts.ssm_chunk)
+    log("train_round " + json.dumps(row))
+    log("train_round_device " + json.dumps({"arch": arch, **split}))
+    del p0, leaves
+    t8.params = t8.server_state = tn.server_state = None
+    torch.cuda.empty_cache()
+    return row, split
+
+
+@contextlib.contextmanager
+def replaced(owner, name, make):
+    """A planted fault: ``owner.name`` replaced by ``make(original)``
+    inside the block, which must call it."""
+    orig = getattr(owner, name)
+    fault, calls = make(orig), [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return fault(*args, **kw)
+
+    setattr(owner, name, counted)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+    if not calls[0]:
+        raise AssertionError(f"the planted fault on {name} never fired")
+
+
+def ce_one_position_early():
+    """internvl's CE taken on the wrong positions: one early, the last
+    patch and the text but its last token."""
+    def make(forward):
+        def faulted(self, *args, **kw):
+            hidden, aux, caches, n_front = forward(self, *args, **kw)
+            return hidden[:, :-1], aux, caches, n_front - 1
+        return faulted
+    return replaced(LM, "_forward", make)
+
+
+def memory_detached():
+    """seamless's memory cut from the encoder: the same values, no
+    gradient into the encoder (it stays in the graph, as
+    ``autograd.grad`` wants every leaf used)."""
+    def make(encode):
+        def faulted(self, *args, **kw):
+            memory = encode(self, *args, **kw)
+            return memory.detach() + 0.0 * memory
+        return faulted
+    return replaced(LM, "_encode", make)
+
+
+def chunk_carry_reset():
+    """The SSM scan's state reset to zero at every chunk boundary."""
+    return replaced(ssm_mod, "_chunk_seq", lambda body: (
+        lambda h, *args: body(torch.zeros_like(h), *args)))
+
+
+#: the planted faults of each arch's reduced round, beside a pod counted
+#: twice
+TRAIN_FAULTS = {"internvl2-26b": ("ce_one_position_early",
+                                  ce_one_position_early),
+                "seamless-m4t-large-v2": ("memory_detached",
+                                          memory_detached),
+                "falcon-mamba-7b": ("chunk_carry_reset", chunk_carry_reset),
+                "hymba-1.5b": ("chunk_carry_reset", chunk_carry_reset)}
+
+
+def phase_train_rounds(archs, label, bytes_a_param, **opts_over):
+    """Phases 22 and 23: each arch's round at full width
+    (``phase_train_cell``, its model freed before the next), then each
+    reduced round on the card against the CPU with a pod counted twice
+    and the arch's own planted fault (``opts_over``: the reduced rounds'
+    options).  -> {arch: (row, split)}."""
+    cells = {arch: phase_train_cell(arch, bytes_a_param) for arch in archs}
+    for arch in archs:
+        phase_round_parity(arch, (("pod_counted_twice", pod_counted_twice),
+                                  TRAIN_FAULTS[arch]), label=label,
+                           **opts_over)
+    return cells
+
+
+# ---------------------------------------------------------------------------
 # phases 13-15: the multi-process and multi-node runtimes, serve mode
 # ---------------------------------------------------------------------------
 
@@ -3398,6 +3708,27 @@ def main() -> int:
                             front_cells.values())
                   for name in front_cells[FRONT_ARCHS[0]][1]}
 
+    # phases 22-23: the fused round of internvl2-26b and
+    # seamless-m4t-large-v2, then of falcon-mamba-7b and hymba-1.5b, at
+    # full width (phase 21's models are freed)
+    t22 = time.perf_counter()
+    bytes_a_param = fused_row["peak_mem_gb_int8"] * 1e9 / fused_row["params"]
+    front_train = phase_train_rounds(FRONT_ARCHS, "front_round_parity",
+                                     bytes_a_param)
+    t23 = time.perf_counter()
+    ssm_train = phase_train_rounds(SSM_ARCHS, "ssm_round_parity",
+                                   bytes_a_param, ssm_chunk=PARITY_SSM_CHUNK)
+    train_s = {"phase_22_s": t23 - t22,
+               "phase_23_s": time.perf_counter() - t23}
+    train_cells = {**front_train, **ssm_train}
+
+    def train_launches(kern, phase, cells):
+        """A kernel's launches in each of a phase's int8 rounds."""
+        return {f"phase {phase}: {arch} fused round ({row['layers']} of "
+                f"{row['full_depth_layers']} layers)":
+                    row["launches_int8"][kern.name]
+                for arch, (row, _) in cells.items()}
+
     # phases 13-15: phase 5's workload on the shmproc and multi-node
     # runtimes and through serve mode (the kernels were built in phase
     # 2, before any daemon starts)
@@ -3468,7 +3799,9 @@ def main() -> int:
                 "phase 19: MoE fused round": launches19[kern.name],
                 "phase 20: SSM / hybrid serve": launches20[kern.name],
                 "phase 21: frontend / enc-dec serve":
-                    launches21[kern.name]}})
+                    launches21[kern.name],
+                **train_launches(kern, 22, front_train),
+                **train_launches(kern, 23, ssm_train)}})
     kernel_ms = sum(launches[o["name"]] * o["ms"] for o in out) / 1e3
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/"
 
@@ -3487,7 +3820,9 @@ def main() -> int:
                 **{f"phase 20: {arch} serve": launches[kern.name]
                    for arch, (_, launches) in ssm_cells.items()},
                 **{f"phase 21: {arch} serve": launches[kern.name]
-                   for arch, (_, launches) in front_cells.items()}}
+                   for arch, (_, launches) in front_cells.items()},
+                **train_launches(kern, 22, front_train),
+                **train_launches(kern, 23, ssm_train)}
 
     def noncausal(row):
         """A kernel's non-causal case (phase 6, seamless's encoder)."""
@@ -3548,7 +3883,9 @@ def main() -> int:
                 f"({MOE_ROUND_LAYERS} layers)": launches19[kern.name],
                 "phase 20: SSM / hybrid serve": launches20[kern.name],
                 "phase 21: frontend / enc-dec serve":
-                    launches21[kern.name]},
+                    launches21[kern.name],
+                **train_launches(kern, 22, front_train),
+                **train_launches(kern, 23, ssm_train)},
             **{k: r[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape", "rows")}})
@@ -3584,6 +3921,14 @@ def main() -> int:
         "front_flash_max_limit_share": max(r["limit_share"]
                                            for r in front_flash),
         "front_phase_s": front_s,
+        **{f"{arch}_train_{key}": row[key]
+           for arch, (row, _) in train_cells.items()
+           for key in ("int8_warm_s", "peak_mem_gb_int8", "kernels_a_round")},
+        **{f"{arch}_train_idle_share": split["idle_share"]
+           for arch, (_, split) in train_cells.items()},
+        **{f"{arch}_train_scan_share": split["scan_ms"] / split["busy_ms"]
+           for arch, (_, split) in ssm_train.items()},
+        **train_s,
         "shmproc_warm_wall_s": shm_row["warm_wall_s"],
         "shmproc_fork_cold_s": shm_row["stats"]["cold_latency_s"],
         "shmproc_fork_warm_s": shm_row["stats"]["warm_latency_s"],

@@ -136,16 +136,14 @@ def _metrics(delta, wsum, loss, n_updates):
     }
 
 
-def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
-                     opts: Optional[ModelOptions] = None):
-    """-> (train_step(params, server_state, batch) -> (params', state',
-    metrics), model).  ``mesh`` is the port's logical mesh
-    (``launch/mesh.py``).  An MoE config trains with ``moe_impl="ep"``
-    by default, its capacity taken per microbatch as the JAX package's
-    per-pod body takes it."""
+def train_options(cfg: ArchConfig, mesh, agg: AggregationConfig
+                  ) -> ModelOptions:
+    """The options ``build_train_step`` trains with when it is given
+    none: the JAX package's (``chunked_sp`` flash, ep for an MoE config,
+    the sharded SSM scan, vocab over the model axis) on ``mesh``."""
     dp = mesh_dp_axes(mesh)
     pod = mesh_pod_axis(mesh)
-    opts = opts or ModelOptions(
+    return ModelOptions(
         attn_impl="chunked_sp",
         moe_impl="ep" if cfg.moe is not None else "dense",
         ssm_impl="sharded",
@@ -154,6 +152,19 @@ def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
         vocab_axis="model",
         mesh=mesh,
     )
+
+
+def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
+                     opts: Optional[ModelOptions] = None):
+    """-> (train_step(params, server_state, batch) -> (params', state',
+    metrics), model).  ``mesh`` is the port's logical mesh
+    (``launch/mesh.py``); ``opts`` default to :func:`train_options`.  An
+    MoE config trains with ``moe_impl="ep"`` by default, its capacity
+    taken per microbatch as the JAX package's per-pod body takes it.  A
+    batch may carry a frontend config's ``"frontend"`` (B, F, d_model);
+    every key is split by pod and microbatch with the tokens."""
+    pod = mesh_pod_axis(mesh)
+    opts = opts or train_options(cfg, mesh, agg)
     model = build_model(cfg, opts)
 
     def flat_step(params, server_state, batch):

@@ -22,10 +22,12 @@ text, so its decode positions start after them (``pos = F + S + i``);
 an encoder–decoder (seamless-m4t-large-v2) encodes the frames
 (``_encode``) into the memory its decoder's cross-attention reads, and
 its decode caches hold that memory's K/V.  A batch's ``"frontend"`` is
-ignored for a config without a frontend, as in the JAX package.  SSM,
-hybrid, frontend and encoder configs serve; training them (``loss``,
-and ``ssm_impl="sharded"``, the option the fused round sets) is refused
-by name until their fused rounds are ported (ROADMAP A.6).
+ignored for a config without a frontend, as in the JAX package.  The
+loss of a decoder-only frontend config drops the patch positions before
+the cross-entropy (the labels cover the text only); an encoder–decoder's
+encoder and ``frontend_proj`` take their gradient through every decoder
+layer's cross-attention.  SSM and hybrid configs train with either scan
+(``ssm_impl="sharded"`` is the fused round's, ``models/ssm.py``).
 """
 from __future__ import annotations
 
@@ -53,11 +55,6 @@ class LM:
         self.opts = opts or ModelOptions()
         self.specs = tfm.layer_specs(cfg)
         self.enc_specs = tfm.encoder_specs(cfg)
-        self.has_ssm = any(s.kind in ("ssm", "hybrid") for s in self.specs)
-        if self.has_ssm and self.opts.ssm_impl == "sharded":
-            raise NotImplementedError(
-                f"{cfg.name}: ssm_impl='sharded' (the SSM scan of the fused "
-                "round) is not ported yet (ROADMAP A.6)")
         self.dtype = getattr(torch, cfg.dtype)
 
     # ------------------------------------------------------------------
@@ -143,17 +140,11 @@ class LM:
     # ------------------------------------------------------------------
     def loss(self, params, batch) -> Tuple[torch.Tensor,
                                            Dict[str, torch.Tensor]]:
-        if self.cfg.frontend or self.enc_specs:
-            raise NotImplementedError(
-                f"{self.cfg.name}: training frontend and encoder-decoder "
-                "configs is not ported yet (ROADMAP A.6, training)")
-        if self.has_ssm:
-            raise NotImplementedError(
-                f"{self.cfg.name}: training SSM and hybrid blocks is not "
-                "ported yet (ROADMAP A.6)")
-        # a batch's "frontend" is ignored here, as without a frontend in
-        # the JAX package
-        hidden, aux, _, _ = self._forward(params, batch["tokens"])
+        hidden, aux, _, n_front = self._forward(
+            params, batch["tokens"], batch.get("frontend"))
+        if n_front:
+            # the CE is over the text: the patches in front have no labels
+            hidden = hidden[:, n_front:]
         w, tied = self._unembed_w(params)
         labels = torch.as_tensor(batch["labels"], device=hidden.device)
         ce = chunked_lm_loss_sharded(

@@ -21,10 +21,21 @@ dtype before the gate.  ``softplus`` is ``jax.nn.softplus``'s
 ``logaddexp(x, 0)`` = ``max(x, 0) + log1p(exp(-|x|))``, not
 ``F.softplus``, which switches to the identity above 20.
 
-``ssm_scan_sharded`` (the ``shard_map`` form that ``ModelOptions(
-ssm_impl="sharded")`` selects for training) is not ported: the model
-refuses that option by name (ROADMAP A.6).  ``ssm_decode`` writes the
-layer's cache in place, as the port's attention decode does.
+``ssm_scan_sharded`` is the ``shard_map`` form that ``ModelOptions(
+ssm_impl="sharded")`` selects, the fused round's scan, at a model axis of
+size 1 (a larger one, or no mesh, is refused: ROADMAP A.8).  There the
+psum over the ``x_proj`` contraction is the identity, so its inputs are
+``_ssm_inputs``'s.  Each chunk body runs under ``torch.utils.checkpoint``
+(non-reentrant, so it nests inside a layer's remat), as under
+``jax.checkpoint``: the backward recomputes the chunk from its carry.
+Its default in-chunk form (``intra_chunk="seq"``) steps ``h = a_t·h +
+b_t`` one position at a time, ``ssm_decode``'s arithmetic, and never
+holds a (B, chunk, d_inner, N) tensor; ``"assoc"`` is the associative
+scan of ``ssm_scan_chunked``.  In eager torch the seq form launches a
+few kernels a position in each of the forward, the two recomputes and
+the backward, so a training round is host-bound; serving keeps the
+chunked scan.  ``ssm_decode`` writes the layer's cache in place, as the
+port's attention decode does.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import require_one_device
 from repro_torch.models.layers import dense_init
 
 
@@ -173,9 +185,66 @@ def ssm_scan_chunked(cfg: ArchConfig, params: dict, u: torch.Tensor,
     return y, h
 
 
+def _chunk_seq(h, A, dt_c, dtu_c, B_c, C_c):
+    """One chunk, one position at a time: -> (h after the chunk, y_c
+    (B,c,d_in) fp32).  Each step is ``ssm_decode``'s update; the chunk's
+    inputs are unbound once (their backward stacks the steps' gradients
+    once, where a slice a step would allocate the chunk in every one)."""
+    ys = []
+    # each step's operands already broadcast: (B,d_in,1), (B,1,N), (B,N,1)
+    for dt_t, dtu_t, B_s, C_s in zip(
+            dt_c[..., None].unbind(1), dtu_c[..., None].unbind(1),
+            B_c[:, :, None, :].unbind(1), C_c[..., None].unbind(1)):
+        a_t = torch.exp(dt_t * A)                           # (B,d_in,N)
+        h = a_t * h + dtu_t * B_s
+        ys.append(torch.bmm(h, C_s).squeeze(-1))            # (B,d_in)
+    return h, torch.stack(ys, dim=1)
+
+
+def _chunk_assoc(h, A, dt_c, dtu_c, B_c, C_c):
+    """One chunk as ``ssm_scan_chunked``'s associative scan."""
+    a = torch.exp(dt_c[..., None] * A)                      # (B,c,d_in,N)
+    b = dtu_c[..., None] * B_c[:, :, None, :]
+    a_cum, h_intra = associative_scan(_affine_combine, (a, b), dim=1)
+    h_t = a_cum * h[:, None] + h_intra
+    return h_t[:, -1], torch.einsum("bcdn,bcn->bcd", h_t, C_c)
+
+
+def ssm_scan_sharded(cfg: ArchConfig, params: dict, u: torch.Tensor,
+                     h0: torch.Tensor, *, chunk: int, dp_axes,
+                     model_axis: str, intra_chunk: str = "seq", mesh=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``ssm_scan_sharded`` at a model axis of size 1:
+    u (B,S,d_in), h0 (B,d_in,N) fp32 -> (y (B,S,d_in) fp32, rounded once
+    to u's dtype, h_final).  ``dp_axes`` shard the batch, which one card
+    holds whole."""
+    require_one_device(mesh, model_axis, "ssm_scan_sharded")
+    if intra_chunk not in ("seq", "assoc"):
+        raise ValueError(f"unknown intra_chunk {intra_chunk!r}")
+    from torch.utils.checkpoint import checkpoint
+
+    S = u.shape[1]
+    c = scan_chunk(S, chunk)
+    dt, B_t, C_t, A = _ssm_inputs(cfg, params, u)
+    uf = u.float()
+    dtu = dt * uf
+    # looked up at each call, so a planted fault can replace the body
+    body = _chunk_seq if intra_chunk == "seq" else _chunk_assoc
+    h, ys = h0, []
+    for lo in range(0, S, c):
+        h, y_c = checkpoint(body, h, A, *(t[:, lo:lo + c] for t in (
+            dt, dtu, B_t, C_t)), use_reentrant=False)
+        ys.append(y_c)
+    y = torch.cat(ys, dim=1) + uf * params["D"]
+    return y.to(u.dtype).float(), h
+
+
 def ssm_block(cfg: ArchConfig, params: dict, x: torch.Tensor,
-              chunk: int = 256, return_state: bool = False):
-    """Full mamba block: in_proj -> conv -> SSM -> gate -> out_proj.
+              chunk: int = 256, return_state: bool = False, *,
+              sharded: bool = False, dp_axes=(), model_axis: str = "model",
+              mesh=None):
+    """Full mamba block: in_proj -> conv -> SSM -> gate -> out_proj, the
+    scan ``ssm_scan_sharded``'s when ``sharded``, else the chunked one.
     ``return_state``: -> (out, {"h", "conv"}), the scan's final state
     and the last ``d_conv - 1`` pre-conv inputs, the decode cache that
     the JAX package takes from a second scan of the same inputs."""
@@ -186,7 +255,12 @@ def ssm_block(cfg: ArchConfig, params: dict, x: torch.Tensor,
     u = F.silu(_causal_conv(raw, params["conv_w"]))
     h0 = torch.zeros((B, d_in, cfg.ssm.d_state), dtype=torch.float32,
                      device=x.device)
-    y, h_final = ssm_scan_chunked(cfg, params, u, h0, chunk=chunk)
+    if sharded:
+        y, h_final = ssm_scan_sharded(cfg, params, u, h0, chunk=chunk,
+                                      dp_axes=dp_axes, model_axis=model_axis,
+                                      mesh=mesh)
+    else:
+        y, h_final = ssm_scan_chunked(cfg, params, u, h0, chunk=chunk)
     y = y.to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"]
     if not return_state:

@@ -21,9 +21,10 @@ of ``dense_d_ff``.  An SSM layer (``cfg.attention_free``) is
 (``cfg.hybrid_parallel_ssm``) runs attention and ``models/ssm.py``'s
 block on the same normed input and adds the mean of the two
 RMS-normed branches before its FFN.  Their decode state, ``{"h",
-"conv"}``, comes from the prefill's own scan (the JAX package scans a
-second time).  An encoder layer (``encoder_specs``) is a self-attention
-block without a causal mask; a decoder layer of an encoder–decoder
+"conv"}``, comes from the prefill's own scan, the sharded one under
+``ssm_impl="sharded"`` (the JAX package scans a second time).  An
+encoder layer (``encoder_specs``) is a self-attention block without a
+causal mask; a decoder layer of an encoder–decoder
 (``spec.cross``) adds cross-attention over the encoder's output between
 its attention and its FFN, and its decode cache holds the memory's K/V
 (``"cross"``), made once by the prefill and never written at decode.
@@ -212,8 +213,7 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
     ``moe.Route`` under remat."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if spec.kind == "ssm":
-        y = ssm_mod.ssm_block(cfg, params["ssm"], h, chunk=opts.ssm_chunk,
-                              return_state=collect_cache)
+        y = _ssm_branch(cfg, opts, params, h, collect_cache)
         y, cache_out = y if collect_cache else (y, None)
         return x + y, None, cache_out
     if cfg.mla is not None:
@@ -237,8 +237,7 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
         cap = opts.prefill_cache_capacity or h.shape[1]
         cache_out = _attn_cache_from_prefill(cfg, spec, kv, cap)
     if spec.kind == "hybrid":
-        s = ssm_mod.ssm_block(cfg, params["ssm"], h, chunk=opts.ssm_chunk,
-                              return_state=collect_cache)
+        s = _ssm_branch(cfg, opts, params, h, collect_cache)
         if collect_cache:
             s, cache_out["ssm"] = s
         a = _merge_branches(cfg, params, a, s)
@@ -259,6 +258,17 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     y, aux = _feed_forward(cfg, spec, opts, params, h2, route)
     return x + y, aux, cache_out
+
+
+def _ssm_branch(cfg: ArchConfig, opts: ModelOptions, params: dict,
+                h: torch.Tensor, collect_cache: bool):
+    """The layer's SSM block on the normed input, with the scan that
+    ``opts.ssm_impl`` names; with ``collect_cache`` also its decode
+    state (under ``"sharded"`` the sharded scan's final state)."""
+    return ssm_mod.ssm_block(
+        cfg, params["ssm"], h, chunk=opts.ssm_chunk,
+        return_state=collect_cache, sharded=opts.ssm_impl == "sharded",
+        dp_axes=opts.dp_axes, model_axis=opts.model_axis, mesh=opts.mesh)
 
 
 def _merge_branches(cfg: ArchConfig, params: dict, a: torch.Tensor,

@@ -315,18 +315,48 @@ JAX_HIER = """
 """
 
 
-def run_forced(code: str, ndev: int = 2, timeout: int = 560) -> str:
-    """tests/test_multidevice.py:13's helper: a subprocess whose XLA
-    sees ``ndev`` host devices."""
+def _forced_env(ndev: int):
     env = dict(os.environ)
     env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={ndev}"
     env["PYTHONPATH"] = SRC
+    return env
+
+
+def run_forced(code: str, ndev: int = 2, timeout: int = 560) -> str:
+    """tests/test_multidevice.py:13's helper: a subprocess whose XLA
+    sees ``ndev`` host devices."""
     out = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(code)],
-        capture_output=True, text=True, timeout=timeout, env=env,
+        capture_output=True, text=True, timeout=timeout,
+        env=_forced_env(ndev),
     )
     assert out.returncode == 0, f"stderr:\n{out.stderr[-3000:]}"
     return out.stdout
+
+
+class ForcedRun:
+    """:func:`run_forced` started now and read later: the subprocess runs
+    beside the tests that come before the first one that needs it."""
+
+    def __init__(self, code: str, ndev: int = 2, timeout: int = 560):
+        self.timeout = timeout
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", textwrap.dedent(code)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=_forced_env(ndev))
+        self.out = None
+
+    def stdout(self) -> str:
+        if self.out is None:
+            out, err = self.proc.communicate(timeout=self.timeout)
+            assert self.proc.returncode == 0, f"stderr:\n{err[-3000:]}"
+            self.out = out
+        return self.out
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
 
 
 def test_hierarchical_step_matches_jax_on_two_pods(tmp_path):

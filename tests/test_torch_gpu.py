@@ -1,8 +1,9 @@
 """The CUDA kernels (fedavg, the three flash-attention forwards, causal
 and not, int8 quantize and dequantize) against their plain PyTorch
 versions, the encoder-decoder and frontend LMs against the CPU, the MoE
-ep block forward and backward, the Mamba block and its decode, and the
-fused int8 round against the CPU, on the card.  Marked ``gpu``: they
+ep block forward and backward, the Mamba block and its decode, the
+sharded SSM scan forward and backward, and the fused int8 round of each
+family against the CPU, on the card.  Marked ``gpu``: they
 skip on a host without a CUDA device or ``nvcc``.  Run them on the card
 with
 
@@ -432,10 +433,17 @@ def _equal_bits(a, b):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["256", "773", "100", "70000", "zeros",
-                                  "bf16", "b64", "b200"])
+                                  "bf16", "b64", "b200", "b16", "3200",
+                                  "8192"])
 def test_quantize_kernels_match_plain_versions_bit_for_bit(card, case):
+    """The JAX package's kernel-test sizes, and the SSM rounds' leaves:
+    ``A_log``'s rows of N = 16, ``D`` and ``dt_bias`` of d_inner 3200
+    (hymba-1.5b) and 8192 (falcon-mamba-7b)."""
     g = torch.Generator(device=card).manual_seed(1)
-    n, block, dtype = {"256": (256, 256, "float32"),
+    n, block, dtype = {"b16": (16 * 8192, 16, "float32"),
+                       "3200": (3200, 256, "float32"),
+                       "8192": (8192, 256, "float32"),
+                       "256": (256, 256, "float32"),
                        "773": (773, 256, "float32"),
                        "100": (100, 256, "float32"),
                        "70000": (70000, 256, "float32"),
@@ -479,8 +487,52 @@ def test_quantize_wrappers_refuse_what_the_kernels_do_not_take(card):
 
 
 @pytest.mark.gpu
-def test_fused_int8_round_on_the_card_matches_the_cpu(card):
+@pytest.mark.parametrize("intra", ["seq", "assoc"])
+def test_ssm_scan_sharded_on_the_card_matches_the_cpu(card, intra):
+    """Reduced falcon-mamba-7b's scan params, 2 x 40 steps at chunk 16
+    (chunks of 10) from a non-zero state: y, the final state and the
+    gradients of u, h0 and the params, card against CPU at fp32 rtol =
+    atol 1e-5 (sums in another order, ``tests/test_torch_ssm.py``'s scan
+    tolerance)."""
     from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ssm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["falcon-mamba-7b"].reduced(dtype="float32")
+    block = ssm.init_ssm(torch.Generator().manual_seed(0), cfg, cfg.d_model,
+                         torch.float32)
+    g = torch.Generator().manual_seed(1)
+    d_in = block["dt_proj"].shape[1]
+    u = torch.randn(2, 40, d_in, generator=g)
+    h0 = torch.randn(2, d_in, cfg.ssm.d_state, generator=g) * 0.1
+    cy, ch = torch.randn(u.shape, generator=g), torch.randn(h0.shape,
+                                                           generator=g)
+    keys = ("x_proj", "dt_proj", "dt_bias", "A_log", "D")
+
+    def run(device):
+        p = {k: block[k].to(device).requires_grad_() for k in keys}
+        uu, hh = u.to(device).requires_grad_(), h0.to(device).requires_grad_()
+        y, h = ssm.ssm_scan_sharded(cfg, p, uu, hh, chunk=16,
+                                    dp_axes=("data",), model_axis="model",
+                                    intra_chunk=intra, mesh=make_host_mesh())
+        grads = torch.autograd.grad(
+            (y * cy.to(device)).sum() + (h * ch.to(device)).sum(),
+            [p[k] for k in keys] + [uu, hh])
+        return [t.detach().cpu() for t in (y, h, *grads)]
+
+    for got, want in zip(run(card), run("cpu")):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _card_vs_cpu_round(card, cfg, seq=32, opts=None):
+    """One reduced hierarchical int8 round on the card against the CPU,
+    from the same params: quantize and dequantize once per leaf and pod,
+    the same loss within 1e-5, and the two-part limit (at most 0.1 % of
+    elements over 1e-5, none over one quantization step of its block,
+    s / n_pods x server_lr)."""
+    import numpy as np
+
     from repro_torch.data.loader import CohortTokenLoader
     from repro_torch.fl.round import AggregationConfig
     from repro_torch.launch.mesh import make_debug_mesh
@@ -488,13 +540,16 @@ def test_fused_int8_round_on_the_card_matches_the_cpu(card):
     from repro_torch.tree import tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = ARCHS["llama3.2-3b"].reduced(dtype="float32")
     mesh = make_debug_mesh((2, 1, 1), ("pod", "data", "model"))
     agg = AggregationConfig(compress="int8", num_microbatches=2)
-    batch = CohortTokenLoader(cfg.vocab_size, 32, 4).round_batch(8, 0)
-    cpu = FusedFLTrainer(cfg, mesh, agg, device="cpu")
+    batch = CohortTokenLoader(cfg.vocab_size, seq, 4).round_batch(8, 0)
+    if cfg.frontend:
+        batch["frontend"] = np.random.default_rng(2).normal(
+            0, 0.02, size=(8, cfg.frontend_tokens, cfg.d_model)).astype(
+                np.float32)
+    cpu = FusedFLTrainer(cfg, mesh, agg, opts=opts, device="cpu")
     cpu.init(0)
-    on_card = FusedFLTrainer(cfg, mesh, agg)
+    on_card = FusedFLTrainer(cfg, mesh, agg, opts=opts)
     on_card.params = tree_map(lambda t: t.to(card), cpu.params)
     on_card.server_state = tree_map(lambda t: t.to(card), cpu.server_state)
     before = [k.launches for k in Q_KERNELS]
@@ -513,6 +568,36 @@ def test_fused_int8_round_on_the_card_matches_the_cpu(card):
     over = sum(int((d > 1e-5).sum()) for d in diffs)
     assert over <= 1e-3 * sum(d.numel() for d in diffs)
     assert all(bool((d <= st + 1e-5).all()) for d, st in zip(diffs, steps))
+
+
+@pytest.mark.gpu
+def test_fused_int8_round_on_the_card_matches_the_cpu(card):
+    from repro_torch.configs import ARCHS
+
+    _card_vs_cpu_round(card, ARCHS["llama3.2-3b"].reduced(dtype="float32"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["internvl2-26b", "seamless-m4t-large-v2",
+                                  "falcon-mamba-7b", "hymba-1.5b"])
+def test_fused_int8_round_of_each_family_on_the_card_matches_the_cpu(card,
+                                                                     arch):
+    """``build_train_step``'s options; the SSM configs with chunks of 8
+    (4 a 32-token sequence), the frontend configs with the stub's
+    embeddings."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.fl.round import AggregationConfig, train_options
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    cfg = ARCHS[arch].reduced(dtype="float32")
+    opts = None
+    if cfg.ssm is not None:
+        opts = dataclasses.replace(train_options(
+            cfg, make_debug_mesh((2, 1, 1), ("pod", "data", "model")),
+            AggregationConfig()), ssm_chunk=8)
+    _card_vs_cpu_round(card, cfg, opts=opts)
 
 
 def _pod_steps(trainer, batch):

@@ -38,6 +38,7 @@ from repro_torch.launch.mesh import make_debug_mesh, make_host_mesh
 from repro_torch.models import ModelOptions, build_model
 from repro_torch.models import attention as tattn
 from repro_torch.models import sharded_vocab
+from repro_torch.tree import tree_leaves
 
 # the suite runs in parallel workers that share the host's cores:
 # the port's tests take two threads, not all of them
@@ -307,8 +308,11 @@ def test_unported_options_are_refused(over, item):
 
 def test_training_moe_and_cross_attention_are_refused():
     """A frontend handed to a config without one is ignored by prefill
-    and loss, as in the JAX package; training a frontend or
-    encoder-decoder config is refused by name (ROADMAP A.6)."""
+    and loss, as in the JAX package.  Training a frontend or
+    encoder-decoder config was refused until its fused round was ported
+    (ROADMAP A.6); now its loss is finite and ``frontend_proj`` (and an
+    encoder) get a gradient (``tests/test_torch_front_train.py`` holds
+    them against the JAX package)."""
     cfg = TORCH_ARCHS["llama3.2-3b"].reduced(dtype="float32")
     model = build_model(cfg, _opts(ModelOptions))
     params = model.init(0, device="cpu")
@@ -323,11 +327,15 @@ def test_training_moe_and_cross_attention_are_refused():
     for arch in ("internvl2-26b", "seamless-m4t-large-v2"):
         fcfg = TORCH_ARCHS[arch].reduced(dtype="float32")
         fmodel = build_model(fcfg, _opts(ModelOptions))
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A.6, training"):
-            fmodel.loss(fmodel.init(0, device="cpu"), {
-                "tokens": toks, "labels": toks,
-                "frontend": torch.zeros(1, fcfg.frontend_tokens, 64)})
+        fparams = fmodel.init(0, device="cpu")
+        front = [fparams["frontend_proj"].requires_grad_()] + [
+            l.requires_grad_() for l in tree_leaves(
+                fparams.get("encoder", {}))]
+        floss, _ = fmodel.loss(fparams, {
+            "tokens": toks, "labels": toks,
+            "frontend": torch.ones(1, fcfg.frontend_tokens, 64)})
+        assert bool(torch.isfinite(floss))
+        assert all(bool(g.any()) for g in torch.autograd.grad(floss, front))
     # MoE blocks serve and, since the MoE fused round is ported, train:
     # a dense arch given an MoE config builds, prefills and takes a step
     moe = cfg.__class__(**{**cfg.__dict__, "moe": MoEConfig(

@@ -55,10 +55,11 @@ from repro_torch.configs import ARCHS as TORCH_ARCHS
 from repro_torch.convert import (flatten_jax_layout, lm_params_from_jax,
                                  lm_params_to_jax, unflatten_jax_layout)
 from repro_torch.fl.round import AggregationConfig, build_train_step
+from repro_torch.fl.server import init_server_state
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import ModelOptions, build_model
 from repro_torch.models import ssm as tssm
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import named_leaves, tree_leaves
 
 # the suite runs in parallel workers that share the host's cores:
 # the port's tests take two threads, not all of them
@@ -459,23 +460,36 @@ def test_ssm_checkpoints_restore_both_ways(arch, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# training them is refused by name (ROADMAP A.6)
+# they train, with the sharded scan (tests/test_torch_ssm_train.py holds
+# that path against the JAX package)
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_training_ssm_and_hybrid_blocks_is_refused(arch):
+    """Refused until the SSM fused round was ported (ROADMAP A.6); now
+    only the sharded scan without a mesh is refused (A.8): ``LM.loss``
+    and ``build_train_step`` train SSM and hybrid blocks, and every leaf
+    of the SSM branch gets a gradient."""
     cfg = TORCH_ARCHS[arch].reduced(dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        build_model(cfg, _opts(ModelOptions, ssm_impl="sharded"))
-    model = build_model(cfg, _opts(ModelOptions))
-    params = model.init(0, device="cpu")
-    toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        model.loss(params, {"tokens": toks, "labels": toks})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        build_train_step(cfg, make_debug_mesh((1, 1), ("data", "model")),
-                         AggregationConfig(num_microbatches=1))
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, 12))
+    batch = {"tokens": toks, "labels": toks}
+    unmeshed = build_model(cfg, _opts(ModelOptions, ssm_impl="sharded"))
+    params = unmeshed.init(0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        unmeshed.loss(params, batch)
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    step, model = build_train_step(cfg, mesh,
+                                   AggregationConfig(num_microbatches=1))
+    assert model.opts.ssm_impl == "sharded"
+    leaves = [l.requires_grad_() for l in tree_leaves(params)]
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    reached = [bool(g.any()) for (k, _), g in zip(named_leaves(params), grads)
+               if ".ssm." in k]
+    assert len(reached) == 8 * len(params["segments"]) and all(reached)
+    _, _, metrics = step(params, init_server_state("fedavg", params), batch)
+    assert bool(torch.isfinite(metrics["loss"]))
     # a dense config keeps training with the fused round's options
     dense = TORCH_ARCHS["llama3.2-3b"].reduced(dtype="float32")
     build_train_step(dense, make_debug_mesh((1, 1), ("data", "model")),

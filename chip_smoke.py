@@ -303,6 +303,23 @@ on any fault; it imports nothing of the JAX package.  Phases:
    then each reduced round (chunks of 16, 4 a sequence) on the card
    against the CPU, and above the limit with one pod counted twice and
    with the scan's state reset to zero at every chunk boundary.
+24. the fused round across processes, run after phase 17: one process a
+   coordinate of the mesh (``launch/dist.py``'s ``spawn_ranks``), the
+   ranks time-sharing this card and talking over gloo, every wire tensor
+   staged through pinned host memory.  World 2 on (2,1,1):
+   full-width llama3.2-3b cut to 2 layers (bf16, seed-0 params, phase
+   11's batch), an int8 round, a second one (warm) and a ``none`` round,
+   each rank's params bit-equal (sha256) to the one-process round of the
+   same params and batch run here first.  World 4 on (2,2,1): two int8 rounds with every rank's params
+   bit-identical after them, the first round's update norm within 1e-2
+   (relative) and its loss within 1e-3 of the one-process round's, and
+   a round with data rank 1's accumulator counted twice above that
+   limit; then reduced fp32 llama3.2-3b, ``none`` within atol 5e-5 and
+   int8 within the two-part limit of the one-process round on the card,
+   and a ring one hop short above it.  Each world prints a
+   ``dist_round`` line: cold and warm wall (the slowest rank), each
+   rank's peak, bytes and seconds a rank spent per pod hop and per data
+   all-reduce, quantize and dequantize launches a rank.
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
 phase 14 in netd and at the controller, phase 15, phase 16, phase 19,
@@ -310,7 +327,7 @@ phase 20, phase 21, each arch's round in phases 22 and 23; each flash
 kernel its launches on every path that runs attention, phases 20's to
 23's models included, and its non-causal case (phase 6, seamless's
 encoder shape); each quantize kernel its launches in phases 11 and 19
-to 23.
+to 23, and on each rank of phase 24.
 """
 from __future__ import annotations
 
@@ -369,6 +386,7 @@ from repro_torch.kernels.quantize import ref as q_ref  # noqa: E402
 from repro_torch.kernels.quantize.quantize import (  # noqa: E402
     DEQUANTIZE, KERNELS as Q_KERNELS, LIB as Q_LIB, QUANTIZE,
     dequantize_cuda, quantize_cuda)
+from repro_torch.launch.dist import spawn_ranks  # noqa: E402
 from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
                                      make_host_mesh)
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
@@ -3631,6 +3649,333 @@ def phase_checkpoint(params, ckpt, ckpt_dir):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the fused round across ranks on the one card
+# ---------------------------------------------------------------------------
+
+#: full-width llama3.2-3b cut to 2 layers: 595,341,312 params (the
+#: 394,002,432 of the tied embedding, 2 x 100,669,440, the final norm)
+DIST_LAYERS = 2
+DIST_AXES = ("pod", "data", "model")
+#: the world-4 full-width round against the one-process round: bf16
+#: weight gradients are rounded over half the rows before the fp32 sum
+DIST_NORM_RTOL, DIST_LOSS_ATOL = 1e-2, 1e-3
+DIST_NONE_ATOL = 5e-5        # tests/test_torch_fused_round.py's limit
+
+
+def exact_matmuls() -> None:
+    """Phase 1's switches: no TF32 and no reduced-precision bf16
+    reduction (the JAX reference accumulates bf16 products in fp32)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def dist_cfg():
+    return dataclasses.replace(ARCHS[LM_ARCH], num_layers=DIST_LAYERS)
+
+
+def digest(params) -> str:
+    """sha256 over every leaf's bytes, in leaf order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tree_leaves(params):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def data_rank_counted_twice(mesh):
+    """A planted fault for the world-4 round: data rank 1's accumulator
+    enters its pod's sum twice (its token count once), as ``pod_counted_
+    twice`` does for a pod."""
+    wire, orig = mesh.wire, mesh.wire.all_reduce
+
+    def faulted(tensors, group, kind, **kw):
+        if kind == "data_all_reduce" and mesh.coord("data") == 1:
+            for t in tensors[:-1]:          # the last is the counts
+                t.mul_(2)
+        return orig(tensors, group, kind, **kw)
+
+    wire.all_reduce = faulted
+    try:
+        yield
+    finally:
+        del wire.all_reduce
+
+
+@contextlib.contextmanager
+def hop_skipped():
+    """A planted fault: the int8 ring runs one hop short (P − 2 hops), so
+    the pod the last hop would bring never reaches the sum."""
+    orig = compression._ring_gather
+    compression._ring_gather = lambda q, s, mesh, axis, hops: orig(
+        q, s, mesh, axis, hops=hops - 1)
+    try:
+        yield
+    finally:
+        compression._ring_gather = orig
+
+
+def rank_round(trainer, params, batch, fault=contextlib.nullcontext):
+    """One round of a rank from ``params`` with its launch counts, peak
+    and wire statistics zeroed just before and read just after."""
+    trainer.mesh.wire.stats.clear()
+    with fault():
+        rec, wall, launches, peak = driven_round(trainer, params, batch)
+    return {"rec": rec, "wall_s": wall, "peak_gb": peak / 1e9,
+            "launches": {k: n for k, n in launches.items() if n},
+            "wire": {k: dict(v) for k, v in trainer.mesh.wire.stats.items()}}
+
+
+def dist_rank(rank, device, shape, world2):
+    """What each rank of phase 24 runs: full-width llama3.2-3b at
+    ``DIST_LAYERS`` layers on ``shape`` from seed-0 params.  ``world2``:
+    an int8 round, a warm one from the same params and a ``none`` round,
+    with the digests of the first and the last; else two int8 rounds
+    (the digest after both), one with a data rank counted twice, and the
+    reduced fp32 rounds (``dist_reduced_rank``)."""
+    exact_matmuls()
+    cfg = dist_cfg()
+    mesh = make_debug_mesh(shape, DIST_AXES)
+    batch = CohortTokenLoader(cfg.vocab_size, seq_len=FUSED_SEQ,
+                              n_cohorts=4).round_batch(8, 0)
+    t8 = FusedFLTrainer(cfg, mesh, round_agg("int8"), device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t8.init(seed=0)             # checks that the ranks drew the same
+    torch.cuda.synchronize()
+    out = {"rank": rank, "coords": mesh.coords, "device": str(device),
+           "init_s": time.perf_counter() - t0}
+    p0 = t8.params
+    rounds = out["rounds"] = {}
+    rounds["int8_cold"] = rank_round(t8, p0, batch)
+    if world2:
+        rounds["int8_cold"]["digest"] = digest(t8.params)
+        rounds["int8_warm"] = rank_round(t8, p0, batch)
+        tn = FusedFLTrainer(cfg, mesh, round_agg("none"), device=device)
+        rounds["none"] = rank_round(tn, p0, batch)
+        rounds["none"]["digest"] = digest(tn.params)
+        tn.params = tn.server_state = None
+    else:
+        rounds["int8_warm"] = rank_round(t8, t8.params, batch)
+        rounds["int8_warm"]["digest"] = digest(t8.params)
+        t8.params = None
+        rounds["int8_fault"] = rank_round(
+            t8, p0, batch, lambda: data_rank_counted_twice(mesh))
+    del p0
+    t8.params = t8.server_state = None
+    torch.cuda.empty_cache()
+    if not world2:
+        out["reduced"] = dist_reduced_rank(rank, device, shape)
+    return out
+
+
+def dist_reduced_rank(rank, device, shape):
+    """The reduced fp32 rounds of a rank from seed-0 params: ``none``,
+    int8, and int8 with a hop skipped; rank 0 returns the params."""
+    cfg = ARCHS[LM_ARCH].reduced(dtype="float32")
+    mesh = make_debug_mesh(shape, DIST_AXES)
+    batch = CohortTokenLoader(cfg.vocab_size, seq_len=64,
+                              n_cohorts=4).round_batch(8, 0)
+    out = {}
+    for label, comp, fault in (("none", "none", contextlib.nullcontext),
+                               ("int8", "int8", contextlib.nullcontext),
+                               ("hop_skipped", "int8", hop_skipped)):
+        t = FusedFLTrainer(cfg, mesh, round_agg(comp), device=device)
+        t.init(seed=0)
+        row = rank_round(t, t.params, batch, fault)
+        row["digest"] = digest(t.params)
+        if rank == 0:
+            row["params"] = [l.cpu() for l in tree_leaves(t.params)]
+        out[label] = row
+    return out
+
+
+def one_process_round(cfg, seq_len, comps, with_steps=True):
+    """The one-process pods-in-turn round on the card (phase 11's mesh)
+    from seed-0 params -> ({comp: (metrics, params)}, the int8 limit's
+    steps when ``with_steps``)."""
+    out, steps = {}, None
+    for comp in comps:
+        t, batch = round_setup(cfg, seq_len, "cuda", comp)
+        t.init(seed=0)
+        if comp == "int8" and with_steps:
+            steps = pod_steps(t, batch)
+        rec = t.train_round(batch)
+        out[comp] = (rec, t.params)
+    return out, steps
+
+
+def slowest(rows, label, key="wall_s"):
+    return max(r["rounds"][label][key] for r in rows)
+
+
+def wire_row(rows, label, n_pods):
+    """Bytes and seconds a rank sent per pod hop and per data all-reduce
+    in one round (rank 0's count; the slowest rank's seconds)."""
+    out = {}
+    for kind, per in (("pod_hop", max(n_pods - 1, 1)),
+                      ("data_all_reduce", 1), ("pod_all_reduce", 1)):
+        got = [r["rounds"][label]["wire"].get(kind) for r in rows]
+        if got[0] is None:
+            continue
+        out[kind] = {"bytes_per": got[0]["bytes"] / per,
+                     "seconds_per": max(g["seconds"] for g in got) / per,
+                     "calls": got[0]["calls"]}
+    return out
+
+
+def check_rank_launches(label, rows, round_label, leaves, n_pods):
+    """Quantize once a leaf and dequantize once a leaf and pod on every
+    rank in an int8 round, no other kernel."""
+    want = {QUANTIZE.name: leaves, DEQUANTIZE.name: leaves * n_pods}
+    got = [r["rounds"][round_label]["launches"] for r in rows]
+    if any(g != want for g in got):
+        raise AssertionError(f"{label}: launches a rank {got}, not {want}")
+    return [g[QUANTIZE.name] for g in got], [g[DEQUANTIZE.name] for g in got]
+
+
+def phase_dist_round():
+    """Phase 24: the fused round with one process a mesh coordinate, the
+    ranks on the one card over gloo (every wire tensor staged through
+    pinned host memory).  World 2 on (2,1,1): full-width llama3.2-3b
+    (bf16, 2 layers) int8 and ``none`` bit-equal (by sha256) to the
+    one-process round of the same params and batch. World 4 on (2,2,1):
+    two int8 rounds with every rank bit-identical, the first round's
+    update norm and loss against the one-process round's, and a data
+    rank counted twice above that limit; then reduced fp32 llama3.2-3b
+    ``none`` (atol 5e-5) and int8 (the two-part limit) against the
+    one-process round on the card, and a hop skipped above the limit."""
+    t_start = time.perf_counter()
+    cfg = dist_cfg()
+    ref, _ = one_process_round(cfg, FUSED_SEQ, ("int8", "none"), False)
+    ref_digests = {c: digest(p) for c, (_, p) in ref.items()}
+    ref_recs = {c: rec for c, (rec, _) in ref.items()}
+    leaves = len(tree_leaves(ref["int8"][1]))
+    n_params = sum(l.numel() for l in tree_leaves(ref["int8"][1]))
+    del ref
+    torch.cuda.empty_cache()
+
+    # world 2: bit-equal to the one-process round (each pod's delta comes
+    # from the same kernels on the same inputs, and a sum of two commutes)
+    t2 = time.perf_counter()
+    rows2 = spawn_ranks(dist_rank, 2, (2, 1, 1), True, timeout_s=300)
+    world2_s = time.perf_counter() - t2
+    launches2 = check_rank_launches("world 2", rows2, "int8_cold", leaves, 2)
+    equal = {c: all(r["rounds"][lbl]["digest"] == ref_digests[c]
+                    for r in rows2)
+             for c, lbl in (("int8", "int8_cold"), ("none", "none"))}
+    row2 = {
+        "world": 2, "mesh": [2, 1, 1], "backend": "gloo", "arch": LM_ARCH,
+        "layers": DIST_LAYERS, "params": n_params, "dtype": cfg.dtype,
+        "seqs_per_pod": 4, "seq_len": FUSED_SEQ, "microbatches_per_pod": 2,
+        "int8_cold_s": slowest(rows2, "int8_cold"),
+        "int8_warm_s": slowest(rows2, "int8_warm"),
+        "none_s": slowest(rows2, "none"),
+        "init_s": max(r["init_s"] for r in rows2),
+        "peak_gb_int8": [r["rounds"]["int8_cold"]["peak_gb"] for r in rows2],
+        "wire_int8": wire_row(rows2, "int8_cold", 2),
+        "wire_none": wire_row(rows2, "none", 2),
+        "quantize_launches": launches2[0],
+        "dequantize_launches": launches2[1],
+        "int8": rows2[0]["rounds"]["int8_cold"]["rec"],
+        "int8_one_process": ref_recs["int8"],
+        "bit_equal_one_process": equal, "spawn_wall_s": world2_s}
+    log("dist_round " + json.dumps(row2))
+    if not all(equal.values()):
+        raise AssertionError(f"world 2: params differ from the one-process "
+                             f"round: {equal}")
+
+    # world 4: full width, then reduced fp32
+    red_cfg = ARCHS[LM_ARCH].reduced(dtype="float32")
+    red_ref, red_steps = one_process_round(red_cfg, 64, ("none", "int8"))
+    t4 = time.perf_counter()
+    rows4 = spawn_ranks(dist_rank, 4, (2, 2, 1), False, timeout_s=300)
+    world4_s = time.perf_counter() - t4
+    launches4 = check_rank_launches("world 4", rows4, "int8_cold", leaves, 2)
+    digests = {r["rounds"]["int8_warm"]["digest"] for r in rows4}
+    rec4 = rows4[0]["rounds"]["int8_cold"]["rec"]
+    recf = rows4[0]["rounds"]["int8_fault"]["rec"]
+    norm_rel = abs(rec4["update_norm"] / ref_recs["int8"]["update_norm"] - 1)
+    fault_rel = abs(recf["update_norm"] / ref_recs["int8"]["update_norm"]
+                    - 1)
+    loss_err = abs(rec4["loss"] - ref_recs["int8"]["loss"])
+    red = {}
+    for label in ("none", "int8", "hop_skipped"):
+        got = rows4[0]["reduced"][label]["params"]
+        want = [t.cpu() for t in tree_leaves(
+            red_ref["none" if label == "none" else "int8"][1])]
+        same = len({r["reduced"][label]["digest"] for r in rows4}) == 1
+        if label == "none":
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            red[label] = {"max_abs_err": err, "ok": err <= DIST_NONE_ATOL,
+                          "ranks_bit_identical": same}
+        else:
+            share, worst, ok = int8_limit(got, want, red_steps)
+            red[label] = {"share_over_1e-5": share, "worst_in_steps": worst,
+                          "ok": ok, "ranks_bit_identical": same}
+    red_launches = check_rank_launches(
+        "world 4 reduced", [{"rounds": r["reduced"]} for r in rows4],
+        "int8", len(rows4[0]["reduced"]["int8"]["params"]), 2)
+    row4 = {
+        "world": 4, "mesh": [2, 2, 1], "backend": "gloo", "arch": LM_ARCH,
+        "layers": DIST_LAYERS, "params": n_params,
+        "int8_cold_s": slowest(rows4, "int8_cold"),
+        "int8_warm_s": slowest(rows4, "int8_warm"),
+        "init_s": max(r["init_s"] for r in rows4),
+        "peak_gb_int8": [r["rounds"]["int8_cold"]["peak_gb"] for r in rows4],
+        "wire_int8": wire_row(rows4, "int8_cold", 2),
+        "quantize_launches": launches4[0],
+        "dequantize_launches": launches4[1],
+        "ranks_bit_identical_after_two_rounds": len(digests) == 1,
+        "int8": rec4, "int8_one_process": ref_recs["int8"],
+        "update_norm_rel": norm_rel, "loss_abs_err": loss_err,
+        "limits": {"update_norm_rel": DIST_NORM_RTOL,
+                   "loss_abs": DIST_LOSS_ATOL},
+        "data_rank_counted_twice": {"update_norm_rel": fault_rel,
+                                    "loss": recf["loss"]},
+        "reduced": red,
+        "reduced_quantize_launches": red_launches[0],
+        "reduced_dequantize_launches": red_launches[1],
+        "reduced_wire_int8": wire_row(
+            [{"rounds": r["reduced"]} for r in rows4], "int8", 2),
+        "spawn_wall_s": world4_s}
+    log("dist_round " + json.dumps(row4))
+    if len(digests) != 1:
+        raise AssertionError("world 4: the ranks differ after two rounds")
+    if not (norm_rel <= DIST_NORM_RTOL and loss_err <= DIST_LOSS_ATOL):
+        raise AssertionError(f"world 4 vs the one-process round: {row4}")
+    if not fault_rel > DIST_NORM_RTOL:
+        raise AssertionError(f"world 4: a data rank counted twice stayed "
+                             f"inside the limit: {fault_rel}")
+    if not (red["none"]["ok"] and red["int8"]["ok"]
+            and red["none"]["ranks_bit_identical"]
+            and red["int8"]["ranks_bit_identical"]):
+        raise AssertionError(f"world 4 reduced rounds: {red}")
+    if red["hop_skipped"]["ok"]:
+        raise AssertionError(f"world 4: a skipped hop stayed inside the "
+                             f"limit: {red['hop_skipped']}")
+    return {"world2": row2, "world4": row4,
+            "phase_24_s": time.perf_counter() - t_start}
+
+
+def dist_launches(kern, dist):
+    """A quantize kernel's launches on each rank of phase 24's int8
+    rounds."""
+    key = ("quantize_launches" if kern is QUANTIZE
+           else "dequantize_launches")
+    w2, w4 = dist["world2"], dist["world4"]
+    return {
+        f"phase 24: 2 ranks (2,1,1), {LM_ARCH} {DIST_LAYERS} layers, int8 "
+        "round, each rank": w2[key],
+        f"phase 24: 4 ranks (2,2,1), {LM_ARCH} {DIST_LAYERS} layers, int8 "
+        "round, each rank": w4[key],
+        f"phase 24: 4 ranks (2,2,1), reduced fp32 {LM_ARCH}, int8 round, "
+        "each rank": w4["reduced_" + key]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3642,11 +3987,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # the JAX reference accumulates bf16 products in fp32
+    exact_matmuls()
     matmul = torch.backends.cuda.matmul
-    matmul.allow_bf16_reduced_precision_reduction = False
     log(f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={matmul.allow_tf32} "
         f"allow_bf16_reduced_precision_reduction="
@@ -3759,6 +4101,11 @@ def main() -> int:
     speedup = engine_speedup()
     log("engine_speedup " + json.dumps(speedup))
     del fleet, svc_params
+
+    # phase 24: the fused round with one process a mesh coordinate, the
+    # ranks on this card over gloo
+    torch.cuda.empty_cache()
+    dist = phase_dist_round()
 
     # phase 9: summary at the main paths' shapes (f32 wire; the lazy
     # round's largest burst for fedavg_accumulate_k): the phase-3 rows
@@ -3885,7 +4232,8 @@ def main() -> int:
                 "phase 21: frontend / enc-dec serve":
                     launches21[kern.name],
                 **train_launches(kern, 22, front_train),
-                **train_launches(kern, 23, ssm_train)},
+                **train_launches(kern, 23, ssm_train),
+                **dist_launches(kern, dist)},
             **{k: r[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape", "rows")}})
@@ -3929,6 +4277,9 @@ def main() -> int:
         **{f"{arch}_train_scan_share": split["scan_ms"] / split["busy_ms"]
            for arch, (_, split) in ssm_train.items()},
         **train_s,
+        **{f"dist_{w}_{key}": dist[w][key] for w in ("world2", "world4")
+           for key in ("int8_cold_s", "int8_warm_s")},
+        "dist_phase_24_s": dist["phase_24_s"],
         "shmproc_warm_wall_s": shm_row["warm_wall_s"],
         "shmproc_fork_cold_s": shm_row["stats"]["cold_latency_s"],
         "shmproc_fork_warm_s": shm_row["stats"]["warm_latency_s"],

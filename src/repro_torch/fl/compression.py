@@ -15,10 +15,12 @@ scale's rounding):
   ``min(256, last)``, zero-pads the last axis to whole blocks, and hands
   the kernel one row per block.
 
-``pod_mean`` and ``pod_mean_compressed`` are collectives across pods
-(inside a manual-``pod`` region of the JAX package); on one card the
-fused round runs the pods in turn and calls :func:`fake_quantize_tree`
-instead.  They are refused by name (ROADMAP A.8).
+``pod_mean`` and ``pod_mean_compressed`` are the collectives of the
+pod tier (inside a manual-``pod`` region of the JAX package).  The port
+has no ambient axis: they take the mesh (``mesh=``), a mesh over ranks
+(``launch/mesh.py``), and move their tensors through its
+:class:`~repro_torch.launch.dist.Wire`.  A fused round in one process
+runs the pods in turn and calls :func:`fake_quantize_tree` instead.
 """
 from __future__ import annotations
 
@@ -105,14 +107,71 @@ def _wire_dtype(dtype: torch.dtype) -> torch.dtype:
         else torch.float32
 
 
-def pod_mean(delta: Any, pod_axis: str) -> Any:
-    raise NotImplementedError(
-        "pod_mean: a collective across pods; on one card the fused round "
-        "runs the pods in turn (ROADMAP A.8)")
+def pod_mean(delta: Any, pod_axis: str, *, mesh) -> Any:
+    """Uncompressed cross-pod mean (the paper-faithful baseline): an
+    all-reduce sum over the pod group, divided by P (the JAX package's
+    ``pmean``), in place on ``delta``'s leaves."""
+    n_pods = _pod_count(mesh, pod_axis)
+    leaves, treedef = tree_flatten(delta)
+    if n_pods > 1:
+        mesh.wire.all_reduce(leaves, mesh.group(pod_axis), "pod_all_reduce")
+    return tree_unflatten(treedef, [l.div_(n_pods) for l in leaves])
 
 
-def pod_mean_compressed(delta: Any, pod_axis: str, block: int = BLOCK) -> Any:
-    raise NotImplementedError(
-        "pod_mean_compressed: a collective across pods; on one card the "
-        "fused round runs the pods in turn with fake_quantize_tree "
-        "(ROADMAP A.8)")
+def pod_mean_compressed(delta: Any, pod_axis: str, block: int = BLOCK, *,
+                        mesh) -> Any:
+    """Mean over the pod axis moving int8 on the wire: the JAX package's
+    ring of P − 1 hops of the local int8 blocks and fp32 scales.
+
+    Each leaf is quantized along its last axis (the quantize kernel on
+    the card), its blocks go round the ring (:func:`_ring_gather`), and
+    every pod's blocks are dequantized into fp32 (the dequantize kernel)
+    and summed.  The JAX ring sums in another order on each pod, and the
+    host reads pod 0's copy, ``d0 + d[P-1] + d[P-2] + ... + d1``; here
+    every rank sums in that order, so all ranks hold the same bits and
+    the replicated params never drift apart.  Then divide by P, crop the
+    padding and cast, as the JAX package does."""
+    n_pods = _pod_count(mesh, pod_axis)
+
+    def leaf(x):
+        q, safe, last = _quantize_blocks_last_axis(x, block)
+        padded_shape = q.shape[:-2] + (q.shape[-2] * q.shape[-1],)
+        pods = _ring_gather(q, safe, mesh, pod_axis, hops=n_pods - 1)
+        acc = None
+        for qp, sp in (pods[0], *pods[:0:-1]):
+            deq = qops.dequantize(qp.reshape(-1, qp.shape[-1]),
+                                  sp.reshape(-1), qp.numel())
+            acc = deq if acc is None else acc.add_(deq)
+        out = acc.div_(n_pods).reshape(padded_shape)[..., :last]
+        return out.reshape(x.shape).to(x.dtype)
+
+    return tree_map(leaf, delta)
+
+
+def _pod_count(mesh, pod_axis: str) -> int:
+    n_pods = mesh.shape[pod_axis]
+    if n_pods > 1 and not mesh.distributed:
+        raise ValueError(
+            f"a collective over the {pod_axis!r} axis needs a mesh over "
+            "ranks (launch.dist.spawn_ranks, then make_debug_mesh); in one "
+            "process the fused round runs the pods in turn")
+    return n_pods
+
+
+def _ring_gather(q: torch.Tensor, scales: torch.Tensor, mesh,
+                 pod_axis: str, hops: int):
+    """Every pod's (q, scales) on every rank, by pod: ``hops`` hops of a
+    ring, each sending to pod + 1 what arrived from pod − 1 at the hop
+    before (this rank's own blocks at the first).  A pod that no hop
+    reached stays all zeros."""
+    n_pods, me = mesh.shape[pod_axis], mesh.coord(pod_axis)
+    pods = [(torch.zeros_like(q), torch.zeros_like(scales))
+            for _ in range(n_pods)]
+    pods[me] = (q, scales)
+    dst, src = mesh.rank_at(**{pod_axis: me + 1}), \
+        mesh.rank_at(**{pod_axis: me - 1})
+    for k in range(1, hops + 1):
+        mesh.wire.exchange(pods[(me - k + 1) % n_pods],
+                           pods[(me - k) % n_pods], dst, src,
+                           mesh.group(pod_axis), "pod_hop")
+    return pods

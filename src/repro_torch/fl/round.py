@@ -12,13 +12,26 @@ One fused round:
      one mean over the whole batch (the no-hierarchy baseline).
   4. the server optimizer applies the aggregated delta.
 
-On one card the pod axis runs pod after pod, as the JAX package's
-``hier_step_legacy`` does: contiguous batch slices, each pod's delta
-passed through ``fake_quantize_tree`` (the quantize and dequantize
-kernels) when compressing, and folded into a running fp32 sum in the
-order ``sum(xs[1:], xs[0])``, so only one pod's delta is alive beside
-the sum.  For two pods this is also the bits of the JAX package's ring
-exchange (``pod_mean_compressed``): a sum of two terms commutes.
+The step runs in one process or with one process a mesh coordinate
+(``launch/dist.py``, ``launch/mesh.py``):
+
+* In one process the pod axis runs pod after pod, as the JAX package's
+  ``hier_step_legacy`` does (contiguous batch slices, each pod's delta
+  passed through ``fake_quantize_tree``, the quantize and dequantize
+  kernels, when compressing), but folded into a running fp32 sum in the
+  order of the JAX ring's pod-0 copy, ``d0 + d[P-1] + ... + d1``
+  (``pod_mean_compressed``): only one pod's delta is alive beside the
+  sum, and the int8 round has the ring's bits.
+* Across ranks each rank takes its pod's slice and, within each
+  microbatch of it, its data coordinate's block of rows (the JAX
+  package splits the pod batch into microbatches first, and the
+  ``data`` axis shards each microbatch).  Each data rank is a cohort
+  weighted by its valid-token count; one all-reduce over the data group
+  (the intra-pod leaf tier) gives the pod's Σw·u and Σw, then the pod
+  tier's ``pod_mean`` or ``pod_mean_compressed`` crosses the pods (the
+  top aggregator, the only hop between pods) and every rank applies the
+  server optimizer to the same bits.  Flat is one all-reduce over
+  (pod, data) and no pod hop.
 
 Sidecar metrics (loss, update norm, aggregate weight, updates folded)
 are computed in the step.  The serving and dry-run builders of the JAX
@@ -82,12 +95,14 @@ def _cohort_update(model, params, mb):
     return list(grads), weight, loss.detach()
 
 
-def accumulate_updates(model, params, batch, agg: AggregationConfig):
-    """-> (delta = weighted-mean update (fp32 tree), total_weight, loss)."""
+def _accumulate(model, params, batch, agg: AggregationConfig):
+    """-> (the accumulator Σ w_i·u_i as fp32 leaves, the params' treedef,
+    each microbatch's weight w_i and loss, the sums of both)."""
     micro = _split_micro(batch, agg.num_microbatches)
     leaves, treedef = tree_flatten(params)
     n = agg.num_microbatches
     mbs = [{k: v[i] for k, v in micro.items()} for i in range(n)]
+    ws, losses = [], []
 
     if agg.timing == "eager":
         # fold each arriving update into the accumulator in place
@@ -100,9 +115,11 @@ def accumulate_updates(model, params, batch, agg: AggregationConfig):
                 a.add_(gg.float().mul_(w))
             del g
             wsum, loss_sum = wsum + w, loss_sum + loss
+            ws.append(w)
+            losses.append(loss)
     else:
         # lazy: queue every update, reduce at the aggregation goal
-        gs, ws, losses = [], [], []
+        gs = []
         for mb in mbs:
             g, w, loss = _cohort_update(model, params, mb)
             gs.append([gg.float() for gg in g])
@@ -113,11 +130,18 @@ def accumulate_updates(model, params, batch, agg: AggregationConfig):
                for col in zip(*gs)]
         del gs
         wsum, loss_sum = w_vec.sum(), torch.stack(losses).sum()
+    return acc, treedef, ws, losses, wsum, loss_sum
 
+
+def accumulate_updates(model, params, batch, agg: AggregationConfig):
+    """-> (delta = weighted-mean update (fp32 tree), total_weight, loss)."""
+    acc, treedef, _, _, wsum, loss_sum = _accumulate(model, params, batch,
+                                                     agg)
     # in place: the accumulator becomes the delta
     denom = torch.clamp_min(wsum, 1.0)
     delta = [a.div_(denom) for a in acc]
-    return tree_unflatten(treedef, delta), wsum, loss_sum / n
+    return (tree_unflatten(treedef, delta), wsum,
+            loss_sum / agg.num_microbatches)
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +182,9 @@ def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
                      opts: Optional[ModelOptions] = None):
     """-> (train_step(params, server_state, batch) -> (params', state',
     metrics), model).  ``mesh`` is the port's logical mesh
-    (``launch/mesh.py``); ``opts`` default to :func:`train_options`.  An
+    (``launch/mesh.py``): in one process, or over ranks, where every
+    rank calls the step with the same params and the whole batch and
+    takes its own rows.  ``opts`` default to :func:`train_options`.  An
     MoE config trains with ``moe_impl="ep"`` by default, its capacity
     taken per microbatch as the JAX package's per-pod body takes it.  A
     batch may carry a frontend config's ``"frontend"`` (B, F, d_model);
@@ -166,6 +192,8 @@ def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
     pod = mesh_pod_axis(mesh)
     opts = opts or train_options(cfg, mesh, agg)
     model = build_model(cfg, opts)
+    if mesh.distributed:
+        return _rank_step(model, mesh, agg), model
 
     def flat_step(params, server_state, batch):
         delta, wsum, loss = accumulate_updates(model, params, batch, agg)
@@ -180,7 +208,8 @@ def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
     def hier_step(params, server_state, batch):
         n_pods = mesh.shape[pod]
         pod_sum = wsum = loss = None
-        for i in range(n_pods):
+        # the ring's pod-0 order: pod 0, then P - 1 down to 1
+        for i in (0, *range(n_pods - 1, 0, -1)):
             b_i = {k: _pod_slice(v, i, n_pods) for k, v in batch.items()}
             d, w, l = accumulate_updates(model, params, b_i, agg)
             if agg.compress == "int8":
@@ -200,6 +229,77 @@ def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
             delta, wsum, loss / n_pods, agg.num_microbatches * n_pods)
 
     return hier_step, model
+
+
+def _rank_step(model, mesh, agg: AggregationConfig):
+    """The step of one rank of a mesh over ranks (module docstring)."""
+    pod = mesh_pod_axis(mesh)
+    hier = pod is not None and agg.hierarchy != "flat"
+    n = agg.num_microbatches
+    split = mesh.shape.get("data", 1) if hier else \
+        mesh.shape.get("data", 1) * mesh.shape.get(pod, 1)
+    if model.cfg.moe is not None and split > 1:
+        raise NotImplementedError(
+            f"an MoE config with a microbatch split over {split} ranks: its "
+            "load-balance loss and ep capacity are taken over the whole "
+            "microbatch, which the model axis's slice will keep together "
+            "(ROADMAP A.8, part 2)")
+    tier = mesh.group("data") if hier else mesh.group(*mesh_dp_axes(mesh))
+
+    def rank_step(params, server_state, batch):
+        rows = {k: _rank_rows(v, mesh, n, hier) for k, v in batch.items()}
+        acc, treedef, ws, losses, _, _ = _accumulate(model, params, rows,
+                                                     agg)
+        # the leaf tier: one all-reduce of Σw·u, the weights and the CE
+        # sums of each microbatch over the ranks that share it
+        stats = torch.stack([*ws, *(w * l for w, l in zip(ws, losses))])
+        mesh.wire.all_reduce([*acc, stats], tier,
+                             "data_all_reduce" if hier else "all_reduce")
+        counts, ce = stats[:n], stats[n:]
+        wsum = counts.sum()
+        loss = (ce / torch.clamp_min(counts, 1.0)).sum() / n
+        denom = torch.clamp_min(wsum, 1.0)
+        delta = tree_unflatten(treedef, [a.div_(denom) for a in acc])
+        n_updates = n
+        if hier:
+            # the top aggregator: the only hop between pods
+            if agg.compress == "int8":
+                delta = compression.pod_mean_compressed(delta, pod,
+                                                        mesh=mesh)
+            else:
+                delta = compression.pod_mean(delta, pod, mesh=mesh)
+            n_pods = mesh.shape[pod]
+            pair = torch.stack([wsum, loss])
+            mesh.wire.all_reduce([pair], mesh.group(pod), "pod_all_reduce")
+            wsum, loss = pair[0], pair[1] / n_pods
+            n_updates = n * n_pods
+        new_params, new_state = apply_server_opt(
+            agg.server_opt, params, server_state, delta, lr=agg.server_lr)
+        return new_params, new_state, _metrics(delta, wsum, loss, n_updates)
+
+    return rank_step
+
+
+def _rank_rows(x: torch.Tensor, mesh, n: int, hier: bool) -> torch.Tensor:
+    """This rank's rows of a global batch tensor, microbatch by
+    microbatch: hierarchical, its pod's contiguous slice, split into
+    ``n`` microbatches, and of each the block of its data coordinate;
+    flat, of each microbatch of the whole batch the block of its
+    (pod, data) coordinate.  The batch must split into P·n·D blocks."""
+    n_pods, n_data = mesh.shape.get("pod", 1), mesh.shape.get("data", 1)
+    if x.shape[0] % (n_pods * n * n_data):
+        raise ValueError(f"global batch {x.shape[0]} does not split into "
+                         f"{n_pods} pods x {n} microbatches x {n_data} "
+                         "data ranks")
+    if hier:
+        x = _pod_slice(x, mesh.coord("pod"), n_pods)
+        blocks, at = n_data, mesh.coord("data")
+    else:
+        blocks = n_pods * n_data
+        at = mesh.coord("pod") * n_data + mesh.coord("data")
+    micro = x.reshape(n, -1, *x.shape[1:])
+    k = micro.shape[1] // blocks
+    return micro[:, at * k:(at + 1) * k].reshape(n * k, *x.shape[1:])
 
 
 def _pod_slice(x: torch.Tensor, i: int, n_pods: int) -> torch.Tensor:

@@ -1,0 +1,233 @@
+"""One process per mesh coordinate: the ranks of the fused round.
+
+The JAX package is single-controller: one program sees every device of
+the mesh, and its collectives (``psum``, ``pmean``, ``ppermute``) are
+compiled into the step.  The port runs one process a coordinate of a
+``(pod, data, model)`` mesh, joined in a ``torch.distributed`` process
+group, and its collectives are calls in the step
+(``fl/compression.py``, ``fl/round.py``).
+
+:func:`spawn_ranks` starts the ranks (the ``spawn`` start method,
+rendezvous through a file in a temporary directory, so no port is
+picked) and returns what each rank's function returned.  The backend is
+gloo, bound to the loopback interface: the ranks share one host, and on
+one card NCCL refuses two ranks on the same GPU.  gloo moves host
+tensors only (its point-to-point takes nothing else), so every tensor
+that crosses between ranks goes through :class:`Wire`, which stages a
+tensor on the card through pinned host buffers, as a pod hop over the
+data-centre network would.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import tempfile
+import time
+import traceback
+from datetime import timedelta
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.device import resolve_device
+
+BACKEND = "gloo"
+#: the largest piece of a tensor staged and sent at once: it bounds the
+#: pinned host buffers of a rank on the card
+STAGE_BYTES = 1 << 27
+
+
+def _rank_device(device: Any, rank: int, world: int) -> torch.device:
+    """A rank's device: the card unless ``device`` names another (on one
+    card every rank is ``cuda:0``; on several, rank r takes card r mod
+    the count).  A rank without a card and without ``device="cpu"``
+    raises, as every entry point of the port does.  The ranks share the
+    host's cores: a rank on the CPU takes one thread, a rank on the card
+    its share of the cores."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    else:
+        torch.set_num_threads(1)
+    return dev
+
+
+def _rank_main(fn: Callable, rank: int, world: int, init_method: str,
+               device: Any, args: Tuple, out_dir: str,
+               timeout_s: float) -> None:
+    out = Path(out_dir)
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        dev = _rank_device(device, rank, world)
+        dist.init_process_group(BACKEND, init_method=init_method,
+                                rank=rank, world_size=world,
+                                timeout=timedelta(seconds=timeout_s))
+        try:
+            result = fn(rank, dev, *args)
+        finally:
+            dist.destroy_process_group()
+        with open(out / f"result-{rank}.pkl", "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        (out / f"error-{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def spawn_ranks(fn: Callable, world: int, *args: Any, device: Any = None,
+                timeout_s: float = 900.0) -> List[Any]:
+    """Run ``fn(rank, device, *args)`` in ``world`` new processes joined
+    in one gloo process group; -> each rank's return value, by rank.
+
+    ``fn`` and ``args`` are pickled (``fn`` by its import path) and the
+    return values come back pickled, so a rank returns host data.  A
+    rank that raises, dies, or outlives ``timeout_s`` fails the call:
+    the other ranks are ended and the failing rank's traceback is in the
+    ``RuntimeError``.  Every process started here is ended before it
+    returns."""
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="lifl-ranks-") as tmp:
+        init_method = f"file://{tmp}/rendezvous"
+        procs = [ctx.Process(target=_rank_main,
+                             args=(fn, r, world, init_method, device, args,
+                                   tmp, timeout_s),
+                             name=f"lifl-rank-{r}")
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        failed: Optional[int] = None
+        deadline = time.monotonic() + timeout_s
+        try:
+            while failed is None and any(p.is_alive() for p in procs):
+                for r, p in enumerate(procs):
+                    if p.exitcode not in (None, 0):
+                        failed = r
+                        break
+                else:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(
+                            f"{world} ranks still running after "
+                            f"{timeout_s} s")
+                    time.sleep(0.05)
+            if failed is None:
+                failed = next((r for r, p in enumerate(procs)
+                               if p.exitcode != 0), None)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        if failed is not None:
+            # a rank's failure breaks its peers' collectives: report each
+            # rank that left a traceback, the first to fail among them
+            why = [f"--- rank {r} ---\n{err.read_text()}"
+                   for r in range(world)
+                   if (err := Path(tmp) / f"error-{r}.txt").exists()]
+            raise RuntimeError(
+                f"rank {failed} of {world} failed (exit code "
+                f"{procs[failed].exitcode}):\n" + "\n".join(why))
+        results = []
+        for r in range(world):
+            with open(Path(tmp) / f"result-{r}.pkl", "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def _pieces(flat: torch.Tensor) -> List[torch.Tensor]:
+    step = max(1, STAGE_BYTES // flat.element_size())
+    return [flat[i:i + step] for i in range(0, flat.numel(), step)]
+
+
+class Wire:
+    """Every tensor that crosses between ranks goes through here.
+
+    A CPU tensor goes to gloo as it is.  A tensor on the card is staged
+    piece by piece (``STAGE_BYTES``) through pinned host buffers, which
+    are kept and reused from call to call.  ``IN_FLIGHT`` pieces are on
+    the wire at once, so one piece's copies overlap another's transfer.
+    ``stats`` holds, by kind of traffic, the calls, the bytes this rank
+    sent and the seconds spent, staging included."""
+
+    IN_FLIGHT = 2
+
+    def __init__(self):
+        self.stats: Dict[str, Dict[str, float]] = {}
+        self._host: Dict[Tuple[int, torch.dtype], torch.Tensor] = {}
+
+    def _staging(self, slot: int, like: torch.Tensor) -> torch.Tensor:
+        buf = self._host.get((slot, like.dtype))
+        if buf is None or buf.numel() < like.numel():
+            buf = torch.empty(like.numel(), dtype=like.dtype,
+                              pin_memory=True)
+            self._host[(slot, like.dtype)] = buf
+        return buf[:like.numel()]
+
+    def _count(self, kind: str, nbytes: int, t0: float) -> None:
+        s = self.stats.setdefault(kind, {"calls": 0, "bytes": 0,
+                                         "seconds": 0.0})
+        s["calls"] += 1
+        s["bytes"] += nbytes
+        s["seconds"] += time.perf_counter() - t0
+
+    @staticmethod
+    def _land(works, host: torch.Tensor, piece: torch.Tensor) -> None:
+        for work in works:
+            work.wait()
+        if host is not piece:
+            piece.copy_(host)
+
+    def all_reduce(self, tensors: Sequence[torch.Tensor], group,
+                   kind: str, op=dist.ReduceOp.SUM) -> None:
+        """Reduce each (contiguous) tensor in place over ``group``'s
+        ranks, by sum unless ``op`` says otherwise; ``group`` None is an
+        axis of one rank, where the result is the tensor itself."""
+        if group is None:
+            return
+        t0, nbytes, flying = time.perf_counter(), 0, []
+        pieces = [p for t in tensors for p in _pieces(t.view(-1))]
+        for i, piece in enumerate(pieces):
+            nbytes += piece.numel() * piece.element_size()
+            if len(flying) == self.IN_FLIGHT:
+                self._land(*flying.pop(0))
+            host = piece
+            if piece.is_cuda:
+                host = self._staging(i % self.IN_FLIGHT, piece)
+                host.copy_(piece)
+            flying.append(([dist.all_reduce(host, op=op, group=group,
+                                            async_op=True)], host, piece))
+        for f in flying:
+            self._land(*f)
+        self._count(kind, nbytes, t0)
+
+    def exchange(self, send: Sequence[torch.Tensor],
+                 recv: Sequence[torch.Tensor], dst: int, src: int, group,
+                 kind: str) -> None:
+        """Send each tensor of ``send`` to global rank ``dst`` while
+        receiving into the same-shaped tensor of ``recv`` from ``src``:
+        each send is paired with its receive, so a ring of these calls
+        cannot deadlock, as one where every rank sends first would.  Each
+        piece has its own tag."""
+        t0, nbytes, flying = time.perf_counter(), 0, []
+        pairs = [(ps, pr) for s, r in zip(send, recv)
+                 for ps, pr in zip(_pieces(s.reshape(-1)),
+                                   _pieces(r.view(-1)))]
+        for tag, (ps, pr) in enumerate(pairs):
+            nbytes += ps.numel() * ps.element_size()
+            if len(flying) == self.IN_FLIGHT:
+                self._land(*flying.pop(0))
+            hs, hr = ps, pr
+            if ps.is_cuda:
+                slot = 2 * (tag % self.IN_FLIGHT)
+                hs, hr = self._staging(slot, ps), self._staging(slot + 1, pr)
+                hs.copy_(ps)
+            flying.append((dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, hs, dst, group, tag),
+                dist.P2POp(dist.irecv, hr, src, group, tag)]), hr, pr))
+        for f in flying:
+            self._land(*f)
+        self._count(kind, nbytes, t0)

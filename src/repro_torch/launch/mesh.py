@@ -1,5 +1,5 @@
-"""A logical mesh of named axes on one device: the JAX package's
-``launch/mesh.py`` (``make_debug_mesh``, ``make_host_mesh``, ``dp_axes``,
+"""A logical mesh of named axes: the JAX package's ``launch/mesh.py``
+(``make_debug_mesh``, ``make_host_mesh``, ``mesh_axes``, ``dp_axes``,
 ``pod_axis``) without the devices.
 
 Mesh axes, as in the JAX package:
@@ -7,26 +7,43 @@ Mesh axes, as in the JAX package:
   data  — client cohorts / FSDP, the intra-node tier
   model — tensor / sequence parallelism
 
-The port runs on one card.  A ``pod`` axis of any size is run there pod
-after pod by the fused round (``fl/round.py``); a ``data`` or ``model``
-axis above 1 would shard the model across cards and is refused
-(ROADMAP A.8).
+A mesh lives in one process or across ranks.  In one process a ``pod``
+axis of any size is run there pod after pod by the fused round
+(``fl/round.py``), and a ``data`` axis above 1 is refused.  Under an
+initialised process group whose world size is the mesh's size
+(``launch/dist.py``), :func:`make_debug_mesh` gives each rank one
+coordinate, row-major over the axes, and one process group per axis:
+the ranks that differ only on that axis.  The pod tier's collectives
+run over the pod group, the data tier's over the data group.  A
+``model`` axis above 1 shards the model itself and is refused
+everywhere (ROADMAP A.8, part 2).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+import itertools
+from dataclasses import dataclass, field
+from math import prod
+from typing import Any, Dict, Optional, Tuple
 
-#: axes whose size above 1 would need more than one card
-_SHARDED_AXES = ("data", "model")
+import torch.distributed as dist
+
+from repro_torch.launch.dist import Wire
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """Axis names and sizes (``mesh.shape[name]``, as a JAX mesh)."""
+    """Axis names and sizes (``mesh.shape[name]``, as a JAX mesh).  A
+    mesh over ranks also holds this rank's coordinate on each axis
+    (``coords``), a process group for each axis and for the batch axes
+    together (``groups``; None for an axis of one rank) and the
+    :class:`~repro_torch.launch.dist.Wire` its collectives go through."""
 
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
+    coords: Tuple[int, ...] = ()
+    groups: Dict[Tuple[str, ...], Any] = field(default_factory=dict,
+                                               compare=False, repr=False)
+    wire: Any = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.sizes):
@@ -35,23 +52,122 @@ class Mesh:
         for name, size in zip(self.axis_names, self.sizes):
             if size < 1:
                 raise ValueError(f"axis {name!r} of size {size}")
-            if name in _SHARDED_AXES and size > 1:
-                raise NotImplementedError(
-                    f"a {name!r} axis of size {size} shards the model "
-                    "across cards, which is not ported yet (ROADMAP A.8)")
+        size = self.shape.get("model", 1)
+        if size > 1:
+            raise NotImplementedError(
+                f"a 'model' axis of size {size} shards the model across "
+                "ranks, which is not ported yet (ROADMAP A.8, part 2: the "
+                "model axis)")
+        size = self.shape.get("data", 1)
+        if size > 1 and not self.coords:
+            raise NotImplementedError(
+                f"a 'data' axis of size {size} runs one process a mesh "
+                "coordinate: build the mesh with make_debug_mesh in ranks "
+                "started by launch.dist.spawn_ranks (ROADMAP A.8)")
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.sizes))
 
+    @property
+    def distributed(self) -> bool:
+        """Whether this mesh spans ranks (one process a coordinate)."""
+        return bool(self.coords)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank (0 in one process)."""
+        return rank_of(self.sizes, self.coords) if self.coords else 0
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (0 in one process or on an
+        axis the mesh lacks)."""
+        if not self.coords or axis not in self.axis_names:
+            return 0
+        return self.coords[self.axis_names.index(axis)]
+
+    def group(self, *axes: str):
+        """The process group of the ranks that differ only on ``axes``
+        (None when that is this rank alone)."""
+        return self.groups.get(tuple(a for a in self.axis_names
+                                     if a in axes))
+
+    def rank_at(self, **coords: int) -> int:
+        """The global rank at this rank's coordinate with ``coords``
+        changed (each taken modulo its axis)."""
+        at = [coords.get(a, c) % s for a, c, s in
+              zip(self.axis_names, self.coords, self.sizes)]
+        return rank_of(self.sizes, at)
+
+
+def rank_of(sizes, coords) -> int:
+    """Row-major rank of ``coords`` in a mesh of ``sizes``."""
+    r = 0
+    for s, c in zip(sizes, coords):
+        r = r * s + c
+    return r
+
+
+def _rank_mesh(axes: Tuple[str, ...], sizes: Tuple[int, ...],
+               rank: int) -> Mesh:
+    """This rank's coordinate and one process group for each axis and
+    for the batch axes together.  Every rank creates every group, in the
+    same order, as ``torch.distributed.new_group`` requires."""
+    coords = []
+    r = rank
+    for s in reversed(sizes):
+        coords.append(r % s)
+        r //= s
+    coords = tuple(reversed(coords))
+    spans = [(a,) for a in axes]
+    dp = tuple(a for a in axes if a in ("pod", "data"))
+    if len(dp) > 1:
+        spans.append(dp)
+    groups = {}
+    for span in spans:
+        along = [i for i, a in enumerate(axes) if a in span]
+        if prod(sizes[i] for i in along) == 1:
+            continue
+        rest = [range(s) if i not in along else [None]
+                for i, s in enumerate(sizes)]
+        for fixed in itertools.product(*rest):
+            members = []
+            for moving in itertools.product(*(range(sizes[i])
+                                              for i in along)):
+                c = list(fixed)
+                for i, v in zip(along, moving):
+                    c[i] = v
+                members.append(rank_of(sizes, c))
+            g = dist.new_group(members)
+            if rank in members:
+                groups[span] = g
+    return Mesh(axes, sizes, coords, groups, Wire())
+
 
 def make_debug_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
-    return Mesh(tuple(axes), tuple(int(s) for s in shape))
+    """A mesh of ``shape`` over ``axes``: across ranks under an
+    initialised process group of more than one rank, whose world size
+    must then be the mesh's size; in one process otherwise."""
+    axes, sizes = tuple(axes), tuple(int(s) for s in shape)
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return Mesh(axes, sizes)
+    Mesh(axes, sizes, coords=(0,) * len(sizes))     # the axes' own checks
+    world = dist.get_world_size()
+    if world != prod(sizes):
+        raise ValueError(f"a mesh {dict(zip(axes, sizes))} of {prod(sizes)} "
+                         f"coordinates under a process group of {world} "
+                         "ranks: one rank a coordinate")
+    return _rank_mesh(axes, sizes, dist.get_rank())
 
 
 def make_host_mesh() -> Mesh:
     """1x1 (data, model) mesh on the one device."""
     return Mesh(("data", "model"), (1, 1))
+
+
+def mesh_axes(mesh: Mesh) -> Tuple[str, ...]:
+    return tuple(mesh.axis_names)
 
 
 def dp_axes(mesh: Mesh) -> Tuple[str, ...]:
@@ -65,10 +181,10 @@ def pod_axis(mesh: Mesh) -> Optional[str]:
 
 def require_one_device(mesh: Optional[Mesh], axis: str, what: str) -> None:
     """Refuse, naming ``what``, a model computation over a named axis
-    that the one card cannot run: without a mesh the axis cannot be
-    resolved (in the JAX package it names an axis of the ambient mesh),
-    and above size 1 it shards across cards (ROADMAP A.8).  A size-1
-    axis is the unsharded computation."""
+    that the port cannot run: without a mesh the axis cannot be resolved
+    (in the JAX package it names an axis of the ambient mesh), and above
+    size 1 it shards the model across ranks (ROADMAP A.8, part 2).  A
+    size-1 axis is the unsharded computation."""
     if mesh is None or mesh.shape.get(axis, 1) > 1:
         raise NotImplementedError(
             f"{what}: a computation sharded over the {axis!r} mesh axis "

@@ -569,9 +569,12 @@ class _TrainerRound:
 
 
 class FusedFLTrainer:
-    """The JAX package's ``FusedFLTrainer`` on one device.  The step runs
-    eagerly (the JAX package jits it); ``ExecutableCache`` holds it under
-    the same signature."""
+    """The JAX package's ``FusedFLTrainer``.  The step runs eagerly (the
+    JAX package jits it); ``ExecutableCache`` holds it under the same
+    signature.  On a mesh over ranks (``launch/mesh.py``) every rank
+    builds the trainer with the same arguments, draws the same params,
+    takes the whole batch each round and ends it with the same params;
+    only rank 0 writes checkpoints."""
 
     def __init__(self, cfg, mesh, agg: AggregationConfig, *, opts=None,
                  device: Any = None, checkpoint_dir: Optional[str] = None,
@@ -587,17 +590,22 @@ class FusedFLTrainer:
                                        opt=agg.server_opt)
         self.params = None
         self.server_state = None
-        self.ckpt = AsyncCheckpointer(checkpoint_dir) if checkpoint_dir else None
+        self.ckpt = AsyncCheckpointer(checkpoint_dir) \
+            if checkpoint_dir and mesh.rank == 0 else None
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.round_id = 0
         self.history: List[Dict[str, float]] = []
 
     def init(self, seed: int = 0) -> None:
-        """Random params from ``seed``, drawn on the trainer's device."""
+        """Random params from ``seed``, drawn on the trainer's device.  On
+        a mesh over ranks each rank draws them, and the ranks' per-leaf
+        checksums must agree."""
         self.params = self.model.init(seed, device=self.device)
         self.server_state = init_server_state(self.agg.server_opt,
                                               self.params)
+        if self.mesh.distributed:
+            check_ranks_agree(self.mesh, self.params)
 
     def maybe_restore(self) -> bool:
         """Checkpoint/restart: resume from the latest checkpoint if any
@@ -627,3 +635,27 @@ class FusedFLTrainer:
         if self.ckpt and self.round_id % self.checkpoint_every == 0:
             self.ckpt.submit(self.round_id, self.params)
         return rec
+
+
+def check_ranks_agree(mesh, tree) -> None:
+    """Refuse unless every rank of ``mesh`` holds the same ``tree``, by
+    per-leaf checksums: the fp64 sum of its values and the int64 sum of
+    its words, each all-reduced with its negation under MAX (equal on
+    every rank exactly when the max is the min)."""
+    leaves = tree_leaves(tree)
+    words = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for what, sums in (
+            ("values", torch.stack([l.sum(dtype=torch.float64)
+                                    for l in leaves])),
+            ("words", torch.stack([
+                l.view(words[l.element_size()]).sum(dtype=torch.int64)
+                for l in leaves]))):
+        both = torch.cat([sums, -sums])
+        mesh.wire.all_reduce([both], torch.distributed.group.WORLD,
+                             "init_check", op=torch.distributed.ReduceOp.MAX)
+        hi, lo = both[:len(leaves)], -both[len(leaves):]
+        if not torch.equal(hi, lo):
+            bad = int((hi != lo).nonzero()[0])
+            raise RuntimeError(
+                f"the ranks drew different params: leaf {bad}'s {what} "
+                "checksum differs between ranks")

@@ -851,3 +851,39 @@ def test_checkpoint_round_trip_on_the_card(card, tmp_path):
             assert g.dtype == w.dtype
             assert g.device.type == (device or "cuda")
             assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.gpu
+def test_two_rank_ring_on_the_card(card):
+    """Two gloo ranks on the card (``spawn_ranks``, every wire tensor
+    staged through pinned host memory): ``pod_mean_compressed`` of each
+    pod's (3, n) leaf (seed = pod) bit-equal on both ranks to the mean
+    of the two pods' int8 round trips (plain versions, in pod-0 order),
+    with one quantize and two dequantize launches a rank; ``pod_mean``
+    the plain mean."""
+    import _torch_dist_ranks as ranks
+    from repro_torch.launch.dist import spawn_ranks
+
+    n = 70000
+    out = spawn_ranks(ranks.ring_on_card, 2, n, timeout_s=300)
+    xs = [torch.randn(3, n, device=card,
+                      generator=torch.Generator(device=card).manual_seed(p))
+          for p in range(2)]
+    deq = []
+    for x in xs:
+        q, s = quantize_ref(_last_axis_blocks(x))
+        deq.append(dequantize_ref(q, s, torch.float32))
+    want = ((deq[0] + deq[1]) / 2).reshape(3, -1)[:, :n].cpu()
+    mean = ((xs[0] + xs[1]) / 2).cpu()
+    for got, got_mean, launches, device in out:
+        assert device == "cuda:0" and launches == (1, 2)
+        assert torch.equal(torch.from_numpy(got), want)
+        torch.testing.assert_close(torch.from_numpy(got_mean), mean,
+                                   rtol=0, atol=1e-6)
+
+
+def _last_axis_blocks(x):
+    """A (rows, n) leaf as the int8 hop blocks it: rows of 256 along the
+    last axis, zero-padded."""
+    pad = -x.shape[-1] % 256
+    return torch.nn.functional.pad(x, (0, pad)).reshape(-1, 256)

@@ -232,13 +232,14 @@ def test_importing_every_port_module_pulls_in_no_jax():
         " n.startswith('jax.') or n == 'repro' or n.startswith('repro.')"
         " or n == 'ml_dtypes')\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
-        "print(bad)\n")
+        "print(bad)\n"
+        "print('repro_torch.launch.dist' in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    n_mods, bad = out.stdout.strip().splitlines()
-    assert int(n_mods) >= 30 and bad == "[]"
+    n_mods, bad, dist = out.stdout.strip().splitlines()
+    assert int(n_mods) >= 30 and bad == "[]" and dist == "True"
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(PORT).as_posix()

@@ -238,7 +238,13 @@ def test_fake_quantize_tree_goes_through_the_kernel_ops(monkeypatch):
 
 
 def test_pod_collectives_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        tcomp.pod_mean({}, "pod")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        tcomp.pod_mean_compressed({}, "pod")
+    """The pod collectives run across ranks (``launch/dist.py``); on a
+    mesh in one process, which runs the pods in turn, they are
+    refused."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh((2, 1, 1), ("pod", "data", "model"))
+    with pytest.raises(ValueError, match="mesh over ranks"):
+        tcomp.pod_mean({}, "pod", mesh=mesh)
+    with pytest.raises(ValueError, match="mesh over ranks"):
+        tcomp.pod_mean_compressed({}, "pod", mesh=mesh)

@@ -320,6 +320,25 @@ on any fault; it imports nothing of the JAX package.  Phases:
    ``dist_round`` line: cold and warm wall (the slowest rank), each
    rank's peak, bytes and seconds a rank spent per pod hop and per data
    all-reduce, quantize and dequantize launches a rank.
+25. the model axis across ranks, in phase 24's rank processes after
+   their phase-24 rounds (one spawn a world serves both; a world's start
+   and first touch count in phase 24): one process a coordinate of a
+   mesh whose ``model`` axis is 2 or 4, the ranks time-sharing this card
+   over gloo (``phase_model_axis``).  World 2 on
+   (1,1,2): full-width llama3.2-3b and deepseek-v2-lite-16b cut to 2
+   layers (bf16, seed-0 params, phase 11's batch; deepseek's layer 1 MoE,
+   32 experts a rank), reduced fp32 llama3.2-3b and deepseek-v2-lite-16b;
+   world 4: full-width llama3.2-3b on (2,1,2) and reduced fp32 gemma3-4b
+   on (1,1,4) with 32 tokens a sequence (the ring of ppermutes).  Each
+   run against the one-process round of the same params and batch run
+   here first: every rank's params bit-identical (sha256) after each
+   round; at full width the update norm within 1e-2 (relative) and the
+   loss within 1e-3, reduced ``none`` within atol 5e-5 and int8 within
+   the two-part limit; and a round with model rank 1's gradient part
+   counted twice outside those limits.  One ``model_round`` line a run:
+   cold and warm walls (the slowest rank), each rank's peak, the model
+   group's calls, bytes and seconds and the (data, model) all-reduce's,
+   quantize and dequantize launches a rank.
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
 phase 14 in netd and at the controller, phase 15, phase 16, phase 19,
@@ -327,7 +346,7 @@ phase 20, phase 21, each arch's round in phases 22 and 23; each flash
 kernel its launches on every path that runs attention, phases 20's to
 23's models included, and its non-causal case (phase 6, seamless's
 encoder shape); each quantize kernel its launches in phases 11 and 19
-to 23, and on each rank of phase 24.
+to 23, and on each rank of phases 24 and 25.
 """
 from __future__ import annotations
 
@@ -3837,7 +3856,7 @@ def check_rank_launches(label, rows, round_label, leaves, n_pods):
     return [g[QUANTIZE.name] for g in got], [g[DEQUANTIZE.name] for g in got]
 
 
-def phase_dist_round():
+def phase_dist_round(spawn):
     """Phase 24: the fused round with one process a mesh coordinate, the
     ranks on the one card over gloo (every wire tensor staged through
     pinned host memory).  World 2 on (2,1,1): full-width llama3.2-3b
@@ -3847,7 +3866,9 @@ def phase_dist_round():
     update norm and loss against the one-process round's, and a data
     rank counted twice above that limit; then reduced fp32 llama3.2-3b
     ``none`` (atol 5e-5) and int8 (the two-part limit) against the
-    one-process round on the card, and a hop skipped above the limit."""
+    one-process round on the card, and a hop skipped above the limit.
+    ``spawn(world)`` starts the world's ranks (``phase_ranks``) and
+    returns each rank's ``dist_rank`` result."""
     t_start = time.perf_counter()
     cfg = dist_cfg()
     ref, _ = one_process_round(cfg, FUSED_SEQ, ("int8", "none"), False)
@@ -3861,7 +3882,7 @@ def phase_dist_round():
     # world 2: bit-equal to the one-process round (each pod's delta comes
     # from the same kernels on the same inputs, and a sum of two commutes)
     t2 = time.perf_counter()
-    rows2 = spawn_ranks(dist_rank, 2, (2, 1, 1), True, timeout_s=300)
+    rows2 = spawn(2)
     world2_s = time.perf_counter() - t2
     launches2 = check_rank_launches("world 2", rows2, "int8_cold", leaves, 2)
     equal = {c: all(r["rounds"][lbl]["digest"] == ref_digests[c]
@@ -3892,7 +3913,7 @@ def phase_dist_round():
     red_cfg = ARCHS[LM_ARCH].reduced(dtype="float32")
     red_ref, red_steps = one_process_round(red_cfg, 64, ("none", "int8"))
     t4 = time.perf_counter()
-    rows4 = spawn_ranks(dist_rank, 4, (2, 2, 1), False, timeout_s=300)
+    rows4 = spawn(4)
     world4_s = time.perf_counter() - t4
     launches4 = check_rank_launches("world 4", rows4, "int8_cold", leaves, 2)
     digests = {r["rounds"]["int8_warm"]["digest"] for r in rows4}
@@ -3974,6 +3995,312 @@ def dist_launches(kern, dist):
         "round, each rank": w4[key],
         f"phase 24: 4 ranks (2,2,1), reduced fp32 {LM_ARCH}, int8 round, "
         "each rank": w4["reduced_" + key]}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the model axis across ranks on the one card
+# ---------------------------------------------------------------------------
+
+MODEL_LAYERS = 2             # full width cut to 2 layers (deepseek's layer
+                             # 1 is MoE: 32 of its 64 experts a rank)
+GEMMA_RING_SEQ = 32          # reduced gemma3-4b on 4 model ranks: a shard of
+                             # 8 rows, its window of 8 one hop of the ring
+
+
+def model_cfg(arch):
+    return dataclasses.replace(ARCHS[arch], num_layers=MODEL_LAYERS)
+
+
+def reduced_cfg(arch):
+    return ARCHS[arch].reduced(dtype="float32")
+
+
+def model_batch(cfg, seq):
+    return CohortTokenLoader(cfg.vocab_size, seq_len=seq,
+                             n_cohorts=4).round_batch(8, 0)
+
+
+@contextlib.contextmanager
+def model_part_counted_twice(mesh):
+    """A planted fault for phase 25: model rank 1's gradient part enters
+    the (data, model) all-reduce twice."""
+    wire, orig = mesh.wire, mesh.wire.all_reduce
+
+    def faulted(tensors, group, kind, **kw):
+        if kind in ("data_all_reduce", "all_reduce") \
+                and mesh.coord("model") == 1:
+            for t in tensors[:-1]:          # the last is the counts (0 here)
+                t.mul_(2)
+        return orig(tensors, group, kind, **kw)
+
+    wire.all_reduce = faulted
+    try:
+        yield
+    finally:
+        del wire.all_reduce
+
+
+def model_wire(row):
+    """The model group's traffic of one rank's round: calls, bytes sent
+    and seconds, over every ``model_*`` kind; and the tier all-reduce's
+    over (data, model)."""
+    kinds = {k: v for k, v in row["wire"].items() if k.startswith("model_")}
+    tier = row["wire"].get("data_all_reduce") or row["wire"].get(
+        "all_reduce") or {"calls": 0, "bytes": 0, "seconds": 0.0}
+    return {"model_calls": sum(v["calls"] for v in kinds.values()),
+            "model_bytes": sum(v["bytes"] for v in kinds.values()),
+            "model_s": sum(v["seconds"] for v in kinds.values()),
+            "model_by_kind": kinds, "tier_all_reduce": tier,
+            "pod_hop": row["wire"].get("pod_hop")}
+
+
+def model_rank(rank, device, runs):
+    """What each rank of phase 25 runs: for each run ``(label, arch,
+    full, shape, seq, rounds)`` a trainer on ``shape`` from seed-0 params
+    (``full``: full width at ``MODEL_LAYERS`` layers, bf16; else reduced
+    fp32); ``rounds`` names them in order: "cold" (int8 from the seed-0
+    params), "warm" (int8 from the cold round's), "none" and "fault"
+    (int8 with model rank 1's part counted twice), each but "warm" from
+    the seed-0 params.  -> {label: {round: rank_round's row with the
+    params' digest}}; rank 0 also returns the reduced runs' params."""
+    exact_matmuls()
+    out = {}
+    for label, arch, full, shape, seq, rounds in runs:
+        cfg = model_cfg(arch) if full else reduced_cfg(arch)
+        mesh = make_debug_mesh(shape, DIST_AXES)
+        batch = model_batch(cfg, seq)
+        trainers = {c: FusedFLTrainer(cfg, mesh, round_agg(c), device=device)
+                    for c in ("int8", "none") if c == "int8" or c in rounds}
+        t8 = trainers["int8"]
+        t8.init(seed=0)
+        p0, rows = t8.params, {}
+        for name in rounds:
+            t = trainers["none" if name == "none" else "int8"]
+            start = t8.params if name == "warm" else p0
+            fault = (lambda: model_part_counted_twice(mesh)) \
+                if name == "fault" else contextlib.nullcontext
+            row = rank_round(t, start, batch, fault)
+            row["digest"] = digest(t.params)
+            if rank == 0 and not full:
+                row["params"] = [l.cpu() for l in tree_leaves(t.params)]
+            rows[name] = row
+            if name != "cold":
+                t.params = t.server_state = None
+        out[label] = rows
+        del p0, trainers, t8
+        torch.cuda.empty_cache()
+    return out
+
+
+def model_reference(arch, full, pods, seq, comps):
+    """The one-process round on the card from seed-0 params on a
+    ``(pods, 1, 1)`` mesh -> ({comp: (metrics, params on the host)}, for
+    a reduced run the int8 limit's steps, the number of leaves)."""
+    cfg = model_cfg(arch) if full else reduced_cfg(arch)
+    mesh = make_debug_mesh((pods, 1, 1), DIST_AXES)
+    batch = model_batch(cfg, seq)
+    out, steps = {}, None
+    for comp in comps:
+        t = FusedFLTrainer(cfg, mesh, round_agg(comp), device="cuda")
+        t.init(seed=0)
+        n_leaves = len(tree_leaves(t.params))
+        if comp == "int8" and not full:
+            steps = pod_steps(t, batch)
+        rec = t.train_round(batch)
+        out[comp] = (rec, None if full else
+                     [l.cpu() for l in tree_leaves(t.params)])
+        t.params = t.server_state = None
+        del t
+        torch.cuda.empty_cache()
+    return out, steps, n_leaves
+
+
+def model_checks(label, rows, ref, steps, full, n_pods, leaves):
+    """The checks of one phase-25 run against the one-process round:
+    every rank's params bit-identical after each round; full width, the
+    cold round's update norm within ``DIST_NORM_RTOL`` (relative) and
+    its loss within ``DIST_LOSS_ATOL``, the fault's norm outside; reduced,
+    ``none`` within ``DIST_NONE_ATOL``, int8 within the two-part limit
+    and the fault above it; quantize once a leaf and dequantize once a
+    leaf and pod on every rank of an int8 round.  -> the run's row."""
+    per = [r[label] for r in rows]
+    rounds = list(per[0])
+    same = {n: len({p[n]["digest"] for p in per}) == 1 for n in rounds}
+    rec = per[0]["cold"]["rec"]
+    want = ref["int8"][0]
+    out = {"run": label, "ranks": len(per), "rounds": rounds,
+           "ranks_bit_identical": same,
+           "cold_s": max(p["cold"]["wall_s"] for p in per),
+           "peak_gb_cold": [p["cold"]["peak_gb"] for p in per],
+           "wire_cold_rank0": model_wire(per[0]["cold"]),
+           "model_s_slowest": max(model_wire(p["cold"])["model_s"]
+                                  for p in per),
+           "int8": rec, "int8_one_process": want}
+    if "warm" in per[0]:
+        out["warm_s"] = max(p["warm"]["wall_s"] for p in per)
+        out["peak_gb_warm"] = [p["warm"]["peak_gb"] for p in per]
+    launches = check_rank_launches(label, [{"rounds": p} for p in per],
+                                   "cold", leaves, n_pods)
+    out["quantize_launches"], out["dequantize_launches"] = launches
+    ok = all(same.values())
+    if full:
+        norm = abs(rec["update_norm"] / want["update_norm"] - 1)
+        fault = abs(per[0]["fault"]["rec"]["update_norm"]
+                    / want["update_norm"] - 1)
+        loss = abs(rec["loss"] - want["loss"])
+        out.update(update_norm_rel=norm, loss_abs_err=loss,
+                   fault_update_norm_rel=fault,
+                   limits={"update_norm_rel": DIST_NORM_RTOL,
+                           "loss_abs": DIST_LOSS_ATOL})
+        ok = ok and norm <= DIST_NORM_RTOL and loss <= DIST_LOSS_ATOL
+        fault_ok = fault > DIST_NORM_RTOL
+    else:
+        got = per[0]["cold"]["params"]
+        share, worst, lim = int8_limit(got, ref["int8"][1], steps)
+        out["int8_limit"] = {"share_over_1e-5": share,
+                             "worst_in_steps": worst, "ok": lim}
+        ok = ok and lim
+        if "none" in per[0]:
+            err = max(float((g - w).abs().max()) for g, w in
+                      zip(per[0]["none"]["params"], ref["none"][1]))
+            out["none_max_abs_err"] = err
+            ok = ok and err <= DIST_NONE_ATOL
+        fs, fw, flim = int8_limit(per[0]["fault"]["params"], ref["int8"][1],
+                                  steps)
+        out["fault"] = {"share_over_1e-5": fs, "worst_in_steps": fw,
+                        "ok": flim}
+        fault_ok = not flim
+    log("model_round " + json.dumps(out))
+    if not ok:
+        raise AssertionError(f"phase 25 {label}: against the one-process "
+                             f"round or across ranks: {out}")
+    if not fault_ok:
+        raise AssertionError(f"phase 25 {label}: model rank 1's part "
+                             "counted twice stayed inside the limit")
+    return out
+
+
+MODEL_RUNS = {
+    2: [("llama_112", LM_ARCH, True, (1, 1, 2), FUSED_SEQ,
+         ("cold", "warm", "fault")),
+        ("deepseek_112", MOE_ARCH, True, (1, 1, 2), FUSED_SEQ,
+         ("cold", "fault")),
+        ("llama_112_reduced", LM_ARCH, False, (1, 1, 2), 64,
+         ("cold", "none", "fault")),
+        ("deepseek_112_reduced", MOE_ARCH, False, (1, 1, 2), 64,
+         ("cold", "fault"))],
+    4: [("llama_212", LM_ARCH, True, (2, 1, 2), FUSED_SEQ,
+         ("cold", "warm", "fault")),
+        ("gemma_114_reduced", "gemma3-4b", False, (1, 1, 4),
+         GEMMA_RING_SEQ, ("cold", "none", "fault"))]}
+
+
+def model_references():
+    """Phase 25's one-process rounds on the card, each from seed-0 params:
+    full width int8 on (1,1,1) and (2,1,1) for llama3.2-3b and on (1,1,1)
+    for deepseek-v2-lite-16b; reduced fp32 ``none`` and int8 (with the
+    int8 limit's steps).  -> {"full", "reduced", "leaves"}."""
+    full, red, leaves = {}, {}, {}
+    for arch, pods in ((LM_ARCH, 1), (LM_ARCH, 2), (MOE_ARCH, 1)):
+        full[arch, pods], _, leaves[arch, True] = model_reference(
+            arch, True, pods, FUSED_SEQ, ("int8",))
+    for arch, seq, comps in ((LM_ARCH, 64, ("none", "int8")),
+                             (MOE_ARCH, 64, ("int8",)),
+                             ("gemma3-4b", GEMMA_RING_SEQ, ("none", "int8"))):
+        *red[arch], leaves[arch, False] = model_reference(arch, False, 1,
+                                                          seq, comps)
+    return {"full": full, "reduced": red, "leaves": leaves}
+
+
+def phase_model_axis(refs, got):
+    """Phase 25: the model axis across ranks, the ranks time-sharing the
+    one card over gloo (``MODEL_RUNS``; the ranks are phase 24's, which
+    run these after their phase-24 rounds).  World 2 on (1,1,2):
+    full-width llama3.2-3b at 2 layers, two int8 rounds (cold, then warm
+    from the first's params) and a faulted one; full-width
+    deepseek-v2-lite-16b at 2 layers (its layer 1 MoE, 32 experts a
+    rank), one int8 round and a faulted one; reduced fp32 llama3.2-3b
+    (``none``, int8, faulted) and deepseek-v2-lite-16b (int8, faulted).
+    World 4: full-width llama3.2-3b on (2,1,2), two int8 rounds and a
+    faulted one; reduced fp32 gemma3-4b on (1,1,4), S 32 (the ring),
+    ``none``, int8 and faulted.  Each run against the one-process round
+    of the same params and batch on this card (``model_checks``).
+    ``got[world]``: each rank's ``model_rank`` result."""
+    rows = {}
+    for world, runs in MODEL_RUNS.items():
+        for label, arch, f, shape, seq, _ in runs:
+            ref = refs["full"][arch, shape[0]] if f \
+                else refs["reduced"][arch][0]
+            steps = None if f else refs["reduced"][arch][1]
+            rows[label] = model_checks(label, got[world], ref, steps, f,
+                                       shape[0], refs["leaves"][arch, f])
+    ring = rows["gemma_114_reduced"]["wire_cold_rank0"]["model_by_kind"]
+    if not ring.get("model_ppermute", {}).get("calls"):
+        raise AssertionError(f"phase 25: gemma3-4b on (1,1,4) took no ring "
+                             f"hop: {ring}")
+    return {"rows": rows}
+
+
+def rank_phases(rank, device, world):
+    """What each rank of phases 24 and 25 runs, in one process: phase
+    24's rounds (``dist_rank``: (2,1,1) in world 2, (2,2,1) in world 4),
+    then phase 25's (``model_rank`` over ``MODEL_RUNS[world]``), so a
+    world starts once and pays a fresh process's first touch once.
+    -> {"dist", "model", "seconds" of each}."""
+    t0 = time.perf_counter()
+    dist = dist_rank(rank, device, (2, 1, 1) if world == 2 else (2, 2, 1),
+                     world == 2)
+    t1 = time.perf_counter()
+    model = model_rank(rank, device, MODEL_RUNS[world])
+    return {"dist": dist, "model": model,
+            "seconds": {"phase_24": t1 - t0,
+                        "phase_25": time.perf_counter() - t1}}
+
+
+def phase_ranks():
+    """Phases 24 and 25, which share one spawn a world (``rank_phases``):
+    phase 25's one-process references first, then phase 24 (which
+    spawns each world and checks its part), then phase 25's checks.
+    A world's start and its ranks' first touch count in phase 24; phase
+    25's time is its references, its checks and, a world, the slowest
+    rank's phase-25 rounds.  -> (phase 24's result, phase 25's)."""
+    t0 = time.perf_counter()
+    refs = model_references()
+    ref_s = time.perf_counter() - t0
+    got = {}
+
+    def spawn(world):
+        got[world] = spawn_ranks(rank_phases, world, world, timeout_s=600)
+        return [r["dist"] for r in got[world]]
+
+    t1 = time.perf_counter()
+    dist = phase_dist_round(spawn)
+    t2 = time.perf_counter()
+    model = phase_model_axis(refs, {w: [r["model"] for r in rows]
+                                    for w, rows in got.items()})
+    ranks25 = {w: max(r["seconds"]["phase_25"] for r in rows)
+               for w, rows in got.items()}
+    model.update(references_s=ref_s, ranks_s=ranks25,
+                 phase_25_s=ref_s + sum(ranks25.values())
+                 + time.perf_counter() - t2)
+    dist["phase_24_s"] = t2 - t1 - sum(ranks25.values())
+    log("phases_24_25 " + json.dumps({
+        "phase_24_s": dist["phase_24_s"], "phase_25_s": model["phase_25_s"],
+        "phase_25_references_s": ref_s, "phase_25_ranks_s": ranks25,
+        "ranks_s": {w: {k: max(r["seconds"][k] for r in rows)
+                        for k in ("phase_24", "phase_25")}
+                    for w, rows in got.items()},
+        "wall_s": time.perf_counter() - t0}))
+    return dist, model
+
+
+def model_launches(kern, model):
+    """A quantize kernel's launches on each rank of phase 25's int8
+    rounds."""
+    key = ("quantize_launches" if kern is QUANTIZE
+           else "dequantize_launches")
+    return {f"phase 25: {label}, int8 round, each rank": row[key]
+            for label, row in model["rows"].items()}
 
 
 def main() -> int:
@@ -4102,10 +4429,11 @@ def main() -> int:
     log("engine_speedup " + json.dumps(speedup))
     del fleet, svc_params
 
-    # phase 24: the fused round with one process a mesh coordinate, the
-    # ranks on this card over gloo
+    # phases 24-25: the fused round with one process a mesh coordinate,
+    # the ranks on this card over gloo, then the model axis across ranks
+    # in the same rank processes
     torch.cuda.empty_cache()
-    dist = phase_dist_round()
+    dist, model = phase_ranks()
 
     # phase 9: summary at the main paths' shapes (f32 wire; the lazy
     # round's largest burst for fedavg_accumulate_k): the phase-3 rows
@@ -4233,7 +4561,8 @@ def main() -> int:
                     launches21[kern.name],
                 **train_launches(kern, 22, front_train),
                 **train_launches(kern, 23, ssm_train),
-                **dist_launches(kern, dist)},
+                **dist_launches(kern, dist),
+                **model_launches(kern, model)},
             **{k: r[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape", "rows")}})
@@ -4280,6 +4609,10 @@ def main() -> int:
         **{f"dist_{w}_{key}": dist[w][key] for w in ("world2", "world4")
            for key in ("int8_cold_s", "int8_warm_s")},
         "dist_phase_24_s": dist["phase_24_s"],
+        **{f"model_{label}_{key}": row[key]
+           for label, row in model["rows"].items()
+           for key in ("cold_s", "warm_s") if key in row},
+        "model_phase_25_s": model["phase_25_s"],
         "shmproc_warm_wall_s": shm_row["warm_wall_s"],
         "shmproc_fork_cold_s": shm_row["stats"]["cold_latency_s"],
         "shmproc_fork_warm_s": shm_row["stats"]["warm_latency_s"],

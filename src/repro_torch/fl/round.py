@@ -32,6 +32,22 @@ The step runs in one process or with one process a mesh coordinate
   top aggregator, the only hop between pods) and every rank applies the
   server optimizer to the same bits.  Flat is one all-reduce over
   (pod, data) and no pod hop.
+* A ``model`` axis above 1 shards the model's regions (context-parallel
+  flash, the vocab-sharded embedding and loss, expert-parallel MoE)
+  over the ranks of one (pod, data) coordinate, which take the same
+  rows.  Each rank's gradient is then its *part* (``launch/dist.py``):
+  the model group's first rank seeds the loss's cotangent, the others
+  seed 0, and the regions' collectives carry the rest, so the parts sum
+  to the one-device gradient.  The data tier's one all-reduce runs over
+  (data, model), and so sums the parts too; the weights and CE sums
+  enter it from the model group's first rank only.  Every rank of the
+  group gets the same bits from it.
+* An MoE microbatch split over data ranks takes its load-balance loss
+  over the whole microbatch (``models/moe.py``): its gradient reaches
+  each rank through the sum in the forward, so each rank seeds its
+  loss's cotangent with its weight w instead of multiplying its
+  gradient by w after (``_Part``), and the ranks' terms add up to the
+  weight of the whole microbatch.
 
 Sidecar metrics (loss, update norm, aggregate weight, updates folded)
 are computed in the step.  The serving and dry-run builders of the JAX
@@ -83,19 +99,40 @@ def _split_micro(batch: Dict[str, torch.Tensor],
     return {k: f(v) for k, v in batch.items()}
 
 
-def _cohort_update(model, params, mb):
+@dataclass(frozen=True)
+class _Part:
+    """A rank's share of each microbatch's gradient (module docstring).
+    ``own``: the rank seeds the loss's cotangent (else 0: a model rank
+    after the first); ``weighted``: the seed is the microbatch's weight
+    w, and the gradient comes out already weighted (else the seed is 1
+    and the gradient is multiplied by w)."""
+
+    own: bool = True
+    weighted: bool = False
+
+
+_WHOLE = _Part()
+
+
+def _cohort_update(model, params, mb, part: _Part = _WHOLE):
     """One arriving model update: (grads in the params' leaf order and
-    dtypes, weight, loss)."""
+    dtypes, weight, loss); with ``part.weighted`` the grads are w times
+    the update."""
     leaves, treedef = tree_flatten(params)
+    weight = (mb["labels"] >= 0).float().sum()
     with torch.enable_grad():
         live = [l.detach().requires_grad_() for l in leaves]
         loss, _ = model.loss(tree_unflatten(treedef, live), mb)
-        grads = torch.autograd.grad(loss, live)
-    weight = (mb["labels"] >= 0).float().sum()
+        seed = None
+        if part != _WHOLE:
+            seed = (weight if part.weighted else torch.ones_like(loss)) \
+                * float(part.own)
+        grads = torch.autograd.grad(loss, live, grad_outputs=seed)
     return list(grads), weight, loss.detach()
 
 
-def _accumulate(model, params, batch, agg: AggregationConfig):
+def _accumulate(model, params, batch, agg: AggregationConfig,
+                part: _Part = _WHOLE):
     """-> (the accumulator Σ w_i·u_i as fp32 leaves, the params' treedef,
     each microbatch's weight w_i and loss, the sums of both)."""
     micro = _split_micro(batch, agg.num_microbatches)
@@ -110,9 +147,9 @@ def _accumulate(model, params, batch, agg: AggregationConfig):
                for l in leaves]
         wsum = loss_sum = torch.zeros((), device=leaves[0].device)
         for mb in mbs:
-            g, w, loss = _cohort_update(model, params, mb)
+            g, w, loss = _cohort_update(model, params, mb, part)
             for a, gg in zip(acc, g):
-                a.add_(gg.float().mul_(w))
+                a.add_(gg.float() if part.weighted else gg.float().mul_(w))
             del g
             wsum, loss_sum = wsum + w, loss_sum + loss
             ws.append(w)
@@ -121,12 +158,13 @@ def _accumulate(model, params, batch, agg: AggregationConfig):
         # lazy: queue every update, reduce at the aggregation goal
         gs = []
         for mb in mbs:
-            g, w, loss = _cohort_update(model, params, mb)
+            g, w, loss = _cohort_update(model, params, mb, part)
             gs.append([gg.float() for gg in g])
             ws.append(w)
             losses.append(loss)
         w_vec = torch.stack(ws)
-        acc = [torch.tensordot(w_vec, torch.stack(col), dims=1)
+        mult = torch.ones_like(w_vec) if part.weighted else w_vec
+        acc = [torch.tensordot(mult, torch.stack(col), dims=1)
                for col in zip(*gs)]
         del gs
         wsum, loss_sum = w_vec.sum(), torch.stack(losses).sum()
@@ -238,21 +276,21 @@ def _rank_step(model, mesh, agg: AggregationConfig):
     n = agg.num_microbatches
     split = mesh.shape.get("data", 1) if hier else \
         mesh.shape.get("data", 1) * mesh.shape.get(pod, 1)
-    if model.cfg.moe is not None and split > 1:
-        raise NotImplementedError(
-            f"an MoE config with a microbatch split over {split} ranks: its "
-            "load-balance loss and ep capacity are taken over the whole "
-            "microbatch, which the model axis's slice will keep together "
-            "(ROADMAP A.8, part 2)")
-    tier = mesh.group("data") if hier else mesh.group(*mesh_dp_axes(mesh))
+    own = mesh.coord("model") == 0
+    part = _Part(own=own, weighted=model.cfg.moe is not None and split > 1)
+    tier_axes = ("data",) if hier else mesh_dp_axes(mesh)
+    tier = mesh.group(*tier_axes, "model")
 
     def rank_step(params, server_state, batch):
         rows = {k: _rank_rows(v, mesh, n, hier) for k, v in batch.items()}
         acc, treedef, ws, losses, _, _ = _accumulate(model, params, rows,
-                                                     agg)
-        # the leaf tier: one all-reduce of Σw·u, the weights and the CE
-        # sums of each microbatch over the ranks that share it
+                                                     agg, part)
+        # the leaf tier: one all-reduce of Σw·u (the model group's parts
+        # with it), the weights and the CE sums of each microbatch over
+        # the ranks that share it, counted once a model group
         stats = torch.stack([*ws, *(w * l for w, l in zip(ws, losses))])
+        if not own:
+            stats.zero_()
         mesh.wire.all_reduce([*acc, stats], tier,
                              "data_all_reduce" if hier else "all_reduce")
         counts, ce = stats[:n], stats[n:]

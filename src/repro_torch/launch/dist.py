@@ -16,6 +16,29 @@ tensors only (its point-to-point takes nothing else), so every tensor
 that crosses between ranks goes through :class:`Wire`, which stages a
 tensor on the card through pinned host buffers, as a pod hop over the
 data-centre network would.
+
+The model axis's collectives run inside the model's forward and
+backward: :func:`all_gather`, :func:`psum`, :func:`pmax` and
+:func:`ppermute` over one axis of a mesh over ranks, each a
+``torch.autograd.Function`` whose backward is its JAX transpose.  The
+rank's computation outside these regions is replicated over the model
+axis (every rank of a model group computes the same values), and its
+gradient is a *part*: the model group's parts sum to the one-device
+gradient.  The fused round seeds the loss's cotangent on the group's
+first rank only and sums the parts with the data tier's all-reduce
+(``fl/round.py``).  With parts flowing backward, a replicated input
+entering a region needs no collective (its cotangent stays this rank's
+part), and the adjoints are:
+
+* ``all_gather`` -> the sum of the cotangent over the group, this
+  rank's slice of it (a reduce-scatter);
+* ``psum`` -> the sum of the cotangent over the group;
+* ``ppermute`` by +s -> the cotangent sent back by -s;
+* ``pmax`` takes no gradient (it is only a softmax's shift).
+
+Sums run in fp32, as the JAX package's regions cast before their
+collectives (gloo has no bf16 sum); a 16-bit tensor that is only moved
+crosses as its bytes.
 """
 from __future__ import annotations
 
@@ -138,6 +161,13 @@ def spawn_ranks(fn: Callable, world: int, *args: Any, device: Any = None,
         return results
 
 
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """A flat 16-bit float tensor as its bytes (gloo moves no bf16 and
+    no int16); any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype in (torch.bfloat16,
+                                              torch.float16) else t
+
+
 def _pieces(flat: torch.Tensor) -> List[torch.Tensor]:
     step = max(1, STAGE_BYTES // flat.element_size())
     return [flat[i:i + step] for i in range(0, flat.numel(), step)]
@@ -159,13 +189,16 @@ class Wire:
         self.stats: Dict[str, Dict[str, float]] = {}
         self._host: Dict[Tuple[int, torch.dtype], torch.Tensor] = {}
 
-    def _staging(self, slot: int, like: torch.Tensor) -> torch.Tensor:
+    def _staging(self, slot: int, like: torch.Tensor,
+                 numel: Optional[int] = None) -> torch.Tensor:
+        """Pinned host slot ``slot`` of ``like``'s dtype, ``numel`` long
+        (default ``like``'s)."""
+        numel = like.numel() if numel is None else numel
         buf = self._host.get((slot, like.dtype))
-        if buf is None or buf.numel() < like.numel():
-            buf = torch.empty(like.numel(), dtype=like.dtype,
-                              pin_memory=True)
+        if buf is None or buf.numel() < numel:
+            buf = torch.empty(numel, dtype=like.dtype, pin_memory=True)
             self._host[(slot, like.dtype)] = buf
-        return buf[:like.numel()]
+        return buf[:numel]
 
     def _count(self, kind: str, nbytes: int, t0: float) -> None:
         s = self.stats.setdefault(kind, {"calls": 0, "bytes": 0,
@@ -204,6 +237,25 @@ class Wire:
             self._land(*f)
         self._count(kind, nbytes, t0)
 
+    def all_gather(self, tensor: torch.Tensor, group,
+                   kind: str) -> torch.Tensor:
+        """-> (n, *tensor.shape): every rank's ``tensor`` of ``group``,
+        by the rank's place in the group; a 16-bit float crosses as its
+        bytes."""
+        t0 = time.perf_counter()
+        n = dist.get_world_size(group)
+        flat = _words(tensor.contiguous().view(-1))
+        host, out = flat, torch.empty((n, flat.numel()), dtype=flat.dtype)
+        if flat.is_cuda:
+            host = self._staging(0, flat)
+            host.copy_(flat)
+            out = self._staging(1, flat, n * flat.numel()).view(n, -1)
+        dist.all_gather(list(out.unbind(0)), host, group=group)
+        if flat.is_cuda:        # off the reused slot
+            out = out.to(tensor.device)
+        self._count(kind, flat.numel() * flat.element_size(), t0)
+        return out.view(tensor.dtype).reshape(n, *tensor.shape)
+
     def exchange(self, send: Sequence[torch.Tensor],
                  recv: Sequence[torch.Tensor], dst: int, src: int, group,
                  kind: str) -> None:
@@ -214,8 +266,8 @@ class Wire:
         piece has its own tag."""
         t0, nbytes, flying = time.perf_counter(), 0, []
         pairs = [(ps, pr) for s, r in zip(send, recv)
-                 for ps, pr in zip(_pieces(s.reshape(-1)),
-                                   _pieces(r.view(-1)))]
+                 for ps, pr in zip(_pieces(_words(s.reshape(-1))),
+                                   _pieces(_words(r.view(-1))))]
         for tag, (ps, pr) in enumerate(pairs):
             nbytes += ps.numel() * ps.element_size()
             if len(flying) == self.IN_FLIGHT:
@@ -231,3 +283,102 @@ class Wire:
         for f in flying:
             self._land(*f)
         self._count(kind, nbytes, t0)
+
+
+# ---------------------------------------------------------------------------
+# collectives over one mesh axis, differentiable (module docstring)
+# ---------------------------------------------------------------------------
+
+
+def _axes(axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _sum(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The fp32 sum of ``x`` over the group of ``axis`` (a name or a
+    tuple of names), a new tensor."""
+    y = x.float().contiguous().clone()
+    mesh.wire.all_reduce([y], mesh.group(*_axes(axis)),
+                         "_".join(_axes(axis)) + "_psum")
+    return y
+
+
+class _AllGather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.meta = (mesh, axis, dim)
+        parts = mesh.wire.all_gather(x, mesh.group(axis),
+                                     f"{axis}_all_gather")
+        return torch.cat(parts.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.meta
+        n = g.shape[dim] // mesh.shape[axis]
+        mine = _sum(g, mesh, axis).narrow(dim, mesh.coord(axis) * n, n)
+        return mine.to(g.dtype), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.meta = (mesh, axis)
+        return _sum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.meta
+        return _sum(g, mesh, axis), None, None
+
+
+class _PPermute(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.meta = (mesh, axis, shift)
+        return _shifted(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, shift = ctx.meta
+        return _shifted(g, mesh, axis, -shift), None, None, None
+
+
+def _shifted(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
+    me = mesh.coord(axis)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    mesh.wire.exchange([x.contiguous()], [out],
+                       mesh.rank_at(**{axis: me + shift}),
+                       mesh.rank_at(**{axis: me - shift}),
+                       mesh.group(axis), f"{axis}_ppermute")
+    return out
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``axis``'s group, concatenated along ``dim``
+    in the group's order (``jax.lax.all_gather(tiled=True)``)."""
+    return _AllGather.apply(x, mesh, axis, dim)
+
+
+def psum(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The sum of ``x`` over the group of ``axis`` (a name, or a tuple of
+    names for the ranks that differ on those axes), in fp32."""
+    return _Psum.apply(x, mesh, axis)
+
+
+def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The max of ``x`` over ``axis``'s group, without a gradient
+    (``stop_gradient(pmax(...))``)."""
+    y = x.detach().float().contiguous().clone()
+    mesh.wire.all_reduce([y], mesh.group(axis), f"{axis}_pmax",
+                         op=dist.ReduceOp.MAX)
+    return y
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
+    """``x`` sent to the rank ``shift`` places on along ``axis`` (taken
+    modulo its size), the ring's ``jax.lax.ppermute``: -> what the rank
+    ``shift`` places back sent."""
+    return _PPermute.apply(x, mesh, axis, shift)

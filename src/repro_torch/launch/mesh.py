@@ -12,11 +12,15 @@ axis of any size is run there pod after pod by the fused round
 (``fl/round.py``), and a ``data`` axis above 1 is refused.  Under an
 initialised process group whose world size is the mesh's size
 (``launch/dist.py``), :func:`make_debug_mesh` gives each rank one
-coordinate, row-major over the axes, and one process group per axis:
-the ranks that differ only on that axis.  The pod tier's collectives
-run over the pod group, the data tier's over the data group.  A
-``model`` axis above 1 shards the model itself and is refused
-everywhere (ROADMAP A.8, part 2).
+coordinate, row-major over the axes, and one process group for each
+set of axes: the ranks that differ only on those axes.  The pod tier's
+collectives run over the pod group, the data tier's over the data
+group (with the model group folded in, ``fl/round.py``), and the
+model's own regions over the model group (``launch/dist.py``'s
+differentiable collectives): context-parallel flash, the vocab-sharded
+embedding and loss, and expert-parallel MoE.  In one process a
+``model`` axis above 1 is refused.  :func:`require_one_device` refuses
+what of the model axis is not ported yet (ROADMAP A.8, part 2).
 """
 from __future__ import annotations
 
@@ -53,11 +57,12 @@ class Mesh:
             if size < 1:
                 raise ValueError(f"axis {name!r} of size {size}")
         size = self.shape.get("model", 1)
-        if size > 1:
-            raise NotImplementedError(
+        if size > 1 and not self.coords:
+            raise ValueError(
                 f"a 'model' axis of size {size} shards the model across "
-                "ranks, which is not ported yet (ROADMAP A.8, part 2: the "
-                "model axis)")
+                "ranks, one process a mesh coordinate: build the mesh with "
+                "make_debug_mesh in ranks started by "
+                "launch.dist.spawn_ranks")
         size = self.shape.get("data", 1)
         if size > 1 and not self.coords:
             raise NotImplementedError(
@@ -110,19 +115,18 @@ def rank_of(sizes, coords) -> int:
 
 def _rank_mesh(axes: Tuple[str, ...], sizes: Tuple[int, ...],
                rank: int) -> Mesh:
-    """This rank's coordinate and one process group for each axis and
-    for the batch axes together.  Every rank creates every group, in the
-    same order, as ``torch.distributed.new_group`` requires."""
+    """This rank's coordinate and one process group for each set of axes
+    (an axis alone, the batch axes together, the data and model axes
+    together, ...).  Every rank creates every group, in the same order,
+    as ``torch.distributed.new_group`` requires."""
     coords = []
     r = rank
     for s in reversed(sizes):
         coords.append(r % s)
         r //= s
     coords = tuple(reversed(coords))
-    spans = [(a,) for a in axes]
-    dp = tuple(a for a in axes if a in ("pod", "data"))
-    if len(dp) > 1:
-        spans.append(dp)
+    spans = [span for n in range(1, len(axes) + 1)
+             for span in itertools.combinations(axes, n)]
     groups = {}
     for span in spans:
         along = [i for i, a in enumerate(axes) if a in span]
@@ -179,14 +183,25 @@ def pod_axis(mesh: Mesh) -> Optional[str]:
     return "pod" if "pod" in mesh.axis_names else None
 
 
+def model_shards(mesh: Optional[Mesh], axis: str, what: str) -> int:
+    """The size of the named ``axis`` that ``what`` is sharded over.  A
+    named axis without a mesh cannot be resolved (in the JAX package it
+    names an axis of the ambient mesh) and is refused; above size 1 the
+    mesh must span ranks (one process refuses it when it is built)."""
+    if mesh is None:
+        raise NotImplementedError(
+            f"{what}: a computation over the {axis!r} mesh axis needs the "
+            f"mesh that names it (ROADMAP A.8); pass ModelOptions(mesh=...)")
+    return mesh.shape.get(axis, 1)
+
+
 def require_one_device(mesh: Optional[Mesh], axis: str, what: str) -> None:
     """Refuse, naming ``what``, a model computation over a named axis
-    that the port cannot run: without a mesh the axis cannot be resolved
-    (in the JAX package it names an axis of the ambient mesh), and above
-    size 1 it shards the model across ranks (ROADMAP A.8, part 2).  A
-    size-1 axis is the unsharded computation."""
-    if mesh is None or mesh.shape.get(axis, 1) > 1:
+    that the port cannot run sharded: without a mesh (as
+    :func:`model_shards`), and above size 1, which is not ported yet
+    (ROADMAP A.8, part 2).  A size-1 axis is the unsharded computation."""
+    if model_shards(mesh, axis, what) > 1:
         raise NotImplementedError(
             f"{what}: a computation sharded over the {axis!r} mesh axis "
-            "is not ported yet (ROADMAP A.8); pass ModelOptions(mesh=...) "
-            f"with a {axis!r} axis of size 1")
+            "is not ported yet (ROADMAP A.8, part 2); run it with a "
+            f"{axis!r} axis of size 1")

@@ -5,8 +5,9 @@ impls.
 * ``chunked`` / ``chunked_sp`` — the flash-style custom backward of
   ``models/flash.py`` (blockwise forward, probabilities recomputed in
   the backward): the training path.  ``chunked_sp`` is the
-  context-parallel form, which on a model axis of size 1 is the same
-  function; a larger axis is refused (ROADMAP A.8).
+  context-parallel form over the mesh's model axis
+  (``flash_self_attention_sp``), which on an axis of size 1 is the
+  same function.
 * ``pallas``  — the flash-attention forward kernel
   (``kernels/flash_attention``): the CUDA kernel on the card, its plain
   version on the CPU.  The name is the JAX package's option name.

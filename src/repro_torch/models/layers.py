@@ -133,11 +133,13 @@ def _chunk_loss(unembed_w, h_c, y_c, tied: bool):
 
 def chunked_lm_loss(hidden: torch.Tensor, unembed_w: torch.Tensor,
                     labels: torch.Tensor, tied: bool,
-                    chunk: int = 256) -> torch.Tensor:
+                    chunk: int = 256, chunk_loss=_chunk_loss) -> torch.Tensor:
     """Cross-entropy without materialising the full (B, S, V) logits:
     a loop over sequence chunks, each under ``torch.utils.checkpoint``
     (the JAX package's ``jax.checkpoint``), so the backward keeps one
-    chunk's logits at a time.  Labels of -1 are ignored."""
+    chunk's logits at a time.  Labels of -1 are ignored.  ``chunk_loss(w,
+    h, y, tied) -> (the chunk's CE sum, its valid count)``: the vocab-
+    sharded loss passes its own."""
     from torch.utils.checkpoint import checkpoint
 
     B, S, _ = hidden.shape
@@ -149,7 +151,7 @@ def chunked_lm_loss(hidden: torch.Tensor, unembed_w: torch.Tensor,
     if S > n * chunk:
         bounds.append((n * chunk, S))
     for lo, hi in bounds:
-        l, c = checkpoint(_chunk_loss, unembed_w, hidden[:, lo:hi],
+        l, c = checkpoint(chunk_loss, unembed_w, hidden[:, lo:hi],
                           labels[:, lo:hi], tied, use_reentrant=False)
         total, count = total + l, count + c
     return total / torch.clamp_min(count, 1.0)

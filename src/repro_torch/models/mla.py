@@ -6,8 +6,8 @@ attention of ``models/flash.py`` over (nope | rope) heads concatenated,
 so one contraction gives q_nope·k_nope + q_rope·k_rope.  Every impl
 but ``naive`` goes there, ``pallas`` included, as in the JAX package:
 its flash kernel is not called for MLA.  ``chunked_sp`` is the
-context-parallel form, refused above a model axis of size 1 (ROADMAP
-A.8).
+context-parallel form over the mesh's model axis, the same function
+with Dk ≠ Dv.
 
 Decode uses the *absorption* trick (W_UK folded into the query, W_UV
 into the output), so a step reads the compressed cache: the latent c

@@ -3,10 +3,15 @@ JAX package's ``models/moe.py``.
 
 * ``dense`` — every expert computes every token, outputs weighted by
   the top-k gates; nothing is dropped.  The oracle for tests.
-* ``ep`` — the JAX package's expert-parallel dispatch, a ``shard_map``
-  there, on one card: its per-shard body with every expert local
-  (``E_loc = E``, shard 0), so the model axis must be of size 1
-  (ROADMAP A.8).  Each expert takes up to ``cap`` of its routed tokens,
+* ``ep`` — the JAX package's expert-parallel dispatch, its
+  ``shard_map`` region's per-shard body ``_ep_local``.  On a model axis
+  of size 1 every expert is local (``E_loc = E``, shard 0); across
+  ``m`` model ranks rank r holds experts ``[r·E/m, (r+1)·E/m)`` (E must
+  divide by m), its tokens are the whole microbatch block of its data
+  coordinate (replicated over the model axis), and the experts' outputs
+  are summed over the axis in fp32 (``launch/dist.py``'s ``psum``).
+  ``cap`` comes from the tokens this rank holds, as ``_ep_local`` takes
+  it from its data shard.  Each expert takes up to ``cap`` of its routed tokens,
   the lowest token indices first as ``jax.lax.top_k`` picks them over a
   0/1 score, runs its FFN on them as one batched product, and the
   weighted outputs are scattered back.  Assignments past an expert's
@@ -36,6 +41,12 @@ atomics: two backward passes there are bit-equal
 (``tests/test_torch_gpu.py``).  Under ``remat`` a layer is recomputed in the backward; its
 :class:`Route` hands the recompute the experts its forward chose.
 
+The load-balance loss is over the whole microbatch, as the JAX package
+takes it outside the region: where the microbatch is split over data
+ranks (``dp_axes`` of a mesh over ranks), the expert counts and the
+probabilities' sums are summed over those ranks in the forward, the
+latter through the differentiable ``psum``.
+
 Shared experts (DeepSeek / Kimi) are dense FFNs applied to every token.
 """
 from __future__ import annotations
@@ -46,7 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
-from repro_torch.launch.mesh import require_one_device
+from repro_torch.launch import dist
+from repro_torch.launch.mesh import model_shards
 from repro_torch.models.layers import dense_init, ffn, init_ffn
 
 
@@ -105,12 +117,21 @@ class Route:
 
 
 def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
-                      num_experts: int) -> torch.Tensor:
-    """Switch-style aux loss: E * Σ_e f_e · p_e."""
+                      num_experts: int, mesh=None,
+                      dp_axes=()) -> torch.Tensor:
+    """Switch-style aux loss: E * Σ_e f_e · p_e, over the tokens of the
+    ranks of ``mesh`` that differ on ``dp_axes`` (this rank's alone in
+    one process or where they are one rank)."""
     T = probs.shape[0]
     counts = torch.bincount(idx.reshape(-1), minlength=num_experts).float()
-    f = counts / max(T * idx.shape[-1], 1)
-    return num_experts * torch.sum(f * probs.mean(dim=0))
+    group = mesh.group(*dp_axes) if mesh is not None and dp_axes else None
+    if group is None:
+        f = counts / max(T * idx.shape[-1], 1)
+        return num_experts * torch.sum(f * probs.mean(dim=0))
+    T = T * torch.distributed.get_world_size(group)
+    counts = dist.psum(counts, mesh, dp_axes)
+    p = dist.psum(probs.sum(dim=0), mesh, dp_axes) / T
+    return num_experts * torch.sum(counts / max(T * idx.shape[-1], 1) * p)
 
 
 def _experts(experts: dict, xe: torch.Tensor) -> torch.Tensor:
@@ -154,20 +175,26 @@ def ep_capacity(moe: MoEConfig, T: int) -> int:
                                // moe.num_experts))))
 
 
-def ep_route(moe: MoEConfig, gates: torch.Tensor, idx: torch.Tensor):
-    """Capacity-based selection of ``_ep_local`` with every expert local.
+def ep_route(moe: MoEConfig, gates: torch.Tensor, idx: torch.Tensor,
+             e_lo: int = 0, e_n: Optional[int] = None):
+    """Capacity-based selection of ``_ep_local`` for the ``e_n`` local
+    experts from ``e_lo`` (default: every expert).
 
-    -> (sel (E, cap) token ids, sel_gate (E, cap) fp32, 0 where the slot
-    holds no routed token, rows (T, k) each token's kept rows of the
-    flattened (E·cap) outputs in ascending expert order, -1 where it was
-    dropped).  An expert takes its routed tokens lowest index first,
-    then fills its capacity with unrouted ones (gate 0), which is the
-    order ``jax.lax.top_k`` gives equal scores."""
+    -> (sel (e_n, cap) token ids, sel_gate (e_n, cap) fp32, 0 where the
+    slot holds no routed token, rows (T, k) each token's kept rows of
+    the flattened (e_n·cap) outputs in ascending expert order, -1 where
+    it was dropped or its expert is not local).  An expert takes its
+    routed tokens lowest index first, then fills its capacity with
+    unrouted ones (gate 0), which is the order ``jax.lax.top_k`` gives
+    equal scores."""
     T, k = idx.shape
-    E = moe.num_experts
+    E = moe.num_experts if e_n is None else e_n
     cap = ep_capacity(moe, T)
+    local = idx - e_lo
+    mine = (local >= 0) & (local < E)
     g_local = torch.zeros((T, E), dtype=gates.dtype,
-                          device=gates.device).scatter_add_(1, idx, gates)
+                          device=gates.device).scatter_add_(
+        1, local.clamp(0, E - 1), torch.where(mine, gates, 0.0))
     chosen = (g_local > 0).to(torch.int8).t()                   # (E, T)
     sel = torch.sort(chosen, dim=1, descending=True,
                      stable=True).indices[:, :cap]              # (E, cap)
@@ -177,14 +204,28 @@ def ep_route(moe: MoEConfig, gates: torch.Tensor, idx: torch.Tensor):
     flat = torch.arange(E * cap, device=idx.device).reshape(E, cap)
     where = torch.full((E, T), -1, dtype=torch.long, device=idx.device)
     where.scatter_(1, sel, torch.where(sel_gate > 0, flat, -1))
-    rows = torch.gather(where.t(), 1, idx.sort(dim=1).values)
+    srt = idx.sort(dim=1).values - e_lo
+    rows = torch.where((srt >= 0) & (srt < E),
+                       torch.gather(where.t(), 1, srt.clamp(0, E - 1)), -1)
     return sel, sel_gate, rows
 
 
 def _moe_ep(moe: MoEConfig, experts: dict, x2: torch.Tensor, gates,
-            idx) -> torch.Tensor:
+            idx, mesh=None, model_axis: str = "model") -> torch.Tensor:
+    """``_ep_local`` over this rank's experts, summed over the model
+    axis (module docstring)."""
     T, D = x2.shape
-    sel, sel_gate, rows = ep_route(moe, gates, idx)
+    m = model_shards(mesh, model_axis, "moe_impl='ep'")
+    if m == 1:
+        sel, sel_gate, rows = ep_route(moe, gates, idx)
+    else:
+        if moe.num_experts % m:
+            raise ValueError(f"moe_impl='ep': {moe.num_experts} experts do "
+                             f"not split over {m} {model_axis!r} ranks")
+        e_n = moe.num_experts // m
+        e_lo = mesh.coord(model_axis) * e_n
+        experts = {k: w[e_lo:e_lo + e_n] for k, w in experts.items()}
+        sel, sel_gate, rows = ep_route(moe, gates, idx, e_lo, e_n)
     E, cap = sel.shape
     y = _experts(experts, x2[sel.reshape(-1)].reshape(E, cap, D))
     y = _gated(y, sel_gate).reshape(E * cap, D)
@@ -192,6 +233,8 @@ def _moe_ep(moe: MoEConfig, experts: dict, x2: torch.Tensor, gates,
     for j in range(rows.shape[1]):      # a token's kept rows, by expert
         r = rows[:, j]
         out += torch.where((r >= 0)[:, None], y[r.clamp_min(0)].float(), 0.0)
+    if m > 1:
+        out = dist.psum(out, mesh, model_axis)
     return out.to(x2.dtype)
 
 
@@ -201,23 +244,25 @@ def _moe_ep(moe: MoEConfig, experts: dict, x2: torch.Tensor, gates,
 
 
 def moe_block(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
-              impl: str = "dense", mesh=None, model_axis: str = "model",
-              route: Optional[Route] = None
+              impl: str = "dense", mesh=None, dp_axes=(),
+              model_axis: str = "model", route: Optional[Route] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (output (B, S, D), aux load-balance loss scalar).
-    ``route``: the layer's :class:`Route` when it runs under remat."""
+    ``dp_axes``: the mesh axes the microbatch is split over, whose ranks
+    share the load-balance loss; ``route``: the layer's :class:`Route`
+    when it runs under remat."""
     moe = cfg.moe
     B, S, D = x.shape
     x2 = x.reshape(B * S, D)
     gates, idx, probs = router_probs(params["router"], x2, moe.top_k)
     if route is not None:
         gates, idx = route.choose(idx, probs)
-    aux = load_balance_loss(probs, idx, moe.num_experts)
+    aux = load_balance_loss(probs, idx, moe.num_experts, mesh, dp_axes)
     if impl == "dense":
         y = _moe_dense(moe, params["experts"], x2, gates, idx)
     elif impl == "ep":
-        require_one_device(mesh, model_axis, "moe_impl='ep'")
-        y = _moe_ep(moe, params["experts"], x2, gates, idx)
+        y = _moe_ep(moe, params["experts"], x2, gates, idx, mesh,
+                    model_axis)
     else:
         raise ValueError(f"unknown moe impl {impl!r}")
     if "shared" in params:

@@ -49,10 +49,32 @@ from repro_torch.models.transformer import ModelOptions
 MOE_AUX_WEIGHT = 0.01
 
 
+def _refuse_unported_model_axis(cfg: ArchConfig, opts: ModelOptions) -> None:
+    """What of a model axis across ranks is not ported yet, by name
+    (ROADMAP A.8, part 2): the sharded SSM scan's model axis, and the
+    frontend and encoder configs."""
+    mesh = opts.mesh
+    m = mesh.shape.get(opts.model_axis, 1) if mesh is not None else 1
+    if m == 1:
+        return
+    what = None
+    if cfg.attention_free or cfg.hybrid_parallel_ssm:
+        what = (f"{cfg.name}'s SSM layers: ssm_scan_sharded over the "
+                f"{opts.model_axis!r} axis")
+    elif cfg.frontend or cfg.encoder_layers:
+        what = (f"{cfg.name}'s {cfg.frontend or 'encoder'} frontend and "
+                "encoder")
+    if what:
+        raise NotImplementedError(
+            f"{what} on a {opts.model_axis!r} axis of size {m} is not ported "
+            "yet (ROADMAP A.8, part 2)")
+
+
 class LM:
     def __init__(self, cfg: ArchConfig, opts: Optional[ModelOptions] = None):
         self.cfg = cfg
         self.opts = opts or ModelOptions()
+        _refuse_unported_model_axis(cfg, self.opts)
         self.specs = tfm.layer_specs(cfg)
         self.enc_specs = tfm.encoder_specs(cfg)
         self.dtype = getattr(torch, cfg.dtype)

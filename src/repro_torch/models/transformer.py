@@ -199,8 +199,8 @@ def _feed_forward(cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
     """-> (y, aux): the layer's MoE block, or its dense FFN (aux None)."""
     if spec.moe:
         return moe_mod.moe_block(cfg, params["moe"], h2, impl=opts.moe_impl,
-                                 mesh=opts.mesh, model_axis=opts.model_axis,
-                                 route=route)
+                                 mesh=opts.mesh, dp_axes=opts.dp_axes,
+                                 model_axis=opts.model_axis, route=route)
     return ffn(params["ffn"], h2), None
 
 

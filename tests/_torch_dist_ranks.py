@@ -89,15 +89,20 @@ def ring_cases(rank, device, cases):
 
 
 def refusals(rank, device):
-    """What a mesh over ranks refuses; -> {case: the error's text}."""
+    """What a mesh over ranks refuses; -> {case: the error's text}:
+    "model" is an SSM config on a model axis of 2, "moe" a frontend
+    config there (both still unported)."""
     world = torch.distributed.get_world_size()
     out = {}
     for case, make in {
             "world": lambda: make_debug_mesh((world * 2, 1, 1), AXES),
-            "model": lambda: make_debug_mesh((world // 2, 1, 2), AXES),
+            "model": lambda: build_train_step(
+                ARCHS["falcon-mamba-7b"].reduced(),
+                make_debug_mesh((world // 2, 1, 2), AXES),
+                AggregationConfig(num_microbatches=2)),
             "moe": lambda: build_train_step(
-                ARCHS["deepseek-v2-lite-16b"].reduced(),
-                make_debug_mesh((world // 2, 2, 1), AXES),
+                ARCHS["internvl2-26b"].reduced(),
+                make_debug_mesh((world // 2, 1, 2), AXES),
                 AggregationConfig(num_microbatches=2))}.items():
         try:
             make()

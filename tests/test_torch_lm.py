@@ -279,14 +279,16 @@ def test_unported_archs_are_refused(arch):
 
 
 def test_moe_ep_needs_a_model_axis_of_size_1():
-    """ep on one card is the expert-parallel body with every expert
-    local: without a mesh, or on a model axis above 1, it is refused."""
+    """ep in one process is the expert-parallel body with every expert
+    local: without a mesh it is refused, and a model axis above 1 is
+    refused in one process (it runs across ranks,
+    ``tests/test_torch_model_axis.py``)."""
     cfg = TORCH_ARCHS["deepseek-v2-lite-16b"].reduced(dtype="float32")
     model = build_model(cfg, _opts(ModelOptions, moe_impl="ep"))
     params = model.init(0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         model.prefill(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    with pytest.raises(ValueError, match="spawn_ranks"):
         make_debug_mesh((1, 2), ("data", "model"))
 
 

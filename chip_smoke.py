@@ -271,7 +271,8 @@ on any fault; it imports nothing of the JAX package.  Phases:
 22. frontend and encoder-decoder fused round, run after phase 21 (its
    models are freed): internvl2-26b at full width cut to 6 of 48 layers
    (3.52 B params; 8 would reckon at about 61 GB) and
-   seamless-m4t-large-v2 at full width and depth (1.77 B), each in bf16
+   seamless-m4t-large-v2 at full width cut to 6 + 6 of its 24 + 24
+   layers, each in bf16
    with random params from seed 0, through phase 11's round with
    ``build_train_step``'s options (``chunked_sp``: the plain flash VJP,
    non-causal in the encoder; cross-attention over 512 rows plain;
@@ -336,9 +337,32 @@ on any fault; it imports nothing of the JAX package.  Phases:
    loss within 1e-3, reduced ``none`` within atol 5e-5 and int8 within
    the two-part limit; and a round with model rank 1's gradient part
    counted twice outside those limits.  One ``model_round`` line a run:
-   cold and warm walls (the slowest rank), each rank's peak, the model
+   cold walls (the slowest rank), each rank's peak, the model
    group's calls, bytes and seconds and the (data, model) all-reduce's,
    quantize and dequantize launches a rank.
+26. the rest of the model axis, in the same rank processes after phase
+   25's runs (``phase_model_axis_26``).  World 2 on (1,1,2), full width
+   in bf16 from seed-0 params on phase 11's batch: falcon-mamba-7b at 1
+   layer (the SSM scan's d_inner split over the model ranks, one psum
+   of the ``x_proj`` product, y and the state gathered), hymba-1.5b at 2
+   layers, internvl2-26b at 1 layer with 256 stub patches a sequence,
+   seamless-m4t-large-v2 at 1 encoder and 1 decoder layer with 512 stub
+   frames (the encoder's non-causal layers through the context-parallel
+   flash, the cross-attention replicated); each a cold and a warm int8
+   round against the one-process round, as phase 25's full-width runs.
+   Reduced fp32 falcon-mamba-7b and seamless-m4t-large-v2 with model
+   rank 1's part counted twice and each family's fault (the ``x_proj``
+   product unsummed; the encoder run causal); then hymba-1.5b (fp32, 2
+   layers) served through ``fl/round.py``'s ``build_prefill_step`` and
+   ``build_decode_step`` (4 prompts of 2000 tokens, 8 greedy steps):
+   every rank's logits bit-identical, the greedy tokens and, within
+   ``LM_PARITY_ATOL``, the logits of the one-process serve, no kernel
+   launched.  World 4 on (1,1,4): reduced hymba-1.5b at 32 tokens (the
+   ring) and internvl2-26b, each with a part counted twice.  One
+   ``model_round`` line a run (with ``param_count`` and the reckoned
+   fp32 part a rank), one ``model_serve`` line; ``phases_24_26`` splits
+   the three phases' time.  ``phase_seconds`` gives each phase group's
+   wall.
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
 phase 14 in netd and at the controller, phase 15, phase 16, phase 19,
@@ -346,7 +370,7 @@ phase 20, phase 21, each arch's round in phases 22 and 23; each flash
 kernel its launches on every path that runs attention, phases 20's to
 23's models included, and its non-causal case (phase 6, seamless's
 encoder shape); each quantize kernel its launches in phases 11 and 19
-to 23, and on each rank of phases 24 and 25.
+to 23, and on each rank of phases 24, 25 and 26.
 """
 from __future__ import annotations
 
@@ -389,7 +413,9 @@ from repro_torch.data.loader import CohortTokenLoader  # noqa: E402
 from repro_torch.data.synthetic import TokenTaskStream  # noqa: E402
 from repro_torch.fl import compression  # noqa: E402
 from repro_torch.fl.round import (AggregationConfig,  # noqa: E402
-                                  accumulate_updates, train_options)
+                                  accumulate_updates, build_decode_step,
+                                  build_prefill_step, serve_options,
+                                  train_options)
 from repro_torch.fl.server import (apply_server_opt,  # noqa: E402
                                   init_server_state)
 from repro_torch.kernels.fedavg import fedavg as fed  # noqa: E402
@@ -426,6 +452,7 @@ from repro_torch.serve import (AdmissionPolicy, AggregationService,  # noqa: E40
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,  # noqa: E402
                               tree_unflatten)
 
+SCRIPT_T0 = time.perf_counter()   # the script's start, after its imports
 N_RESNET18 = 11_199_486      # fp32 parameters of RESNET18
 NOMINAL_BPS = 3.35e12        # H100 SXM HBM3, NVIDIA's data sheet
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
@@ -2898,19 +2925,21 @@ def phase_front_serve(copy_bps):
 # hybrid configs
 # ---------------------------------------------------------------------------
 
-#: layers in each arch's round (None: full depth), at full width.  The
+#: decoder layers in each arch's round (an encoder–decoder's encoder as
+#: deep), at full width.  The
 #: peaks are reckoned at the bytes a param of phase 11's round in the
 #: same run (about 14.2 on an H100: 45.76 GB for 3.21 B):
 #: internvl2-26b's 390 M a layer beside 1.14 B of untied embedding and
 #: head make 6 layers (3.52 B) about 50 GB and 8 about 61 GB;
-#: seamless-m4t-large-v2 (1.77 B) about 25 GB whole.  The SSM
+#: seamless-m4t-large-v2 (1.77 B) about 25 GB whole, cut to 6 + 6
+#: layers to keep the script within half its limit.  The SSM
 #: rounds are host-bound, not memory-bound: the sequential in-chunk scan
 #: dispatches about 124 k ops a layer a round (2 pods x 2 microbatches
 #: x 2 x 512 positions; forward, two recomputes, backward;
 #: ``tools/count_round_ops.py``), about 3 s
 #: of the host a layer-round on the card, so falcon-mamba-7b takes 1
 #: layer and hymba-1.5b 2 (layer 0 global, layer 1 a window of 1024).
-TRAIN_LAYERS = {"internvl2-26b": 6, "seamless-m4t-large-v2": None,
+TRAIN_LAYERS = {"internvl2-26b": 6, "seamless-m4t-large-v2": 6,
                 "falcon-mamba-7b": 1, "hymba-1.5b": 2}
 #: the reduced SSM rounds' chunk: 4 chunks a 64-token sequence, so a
 #: carry crosses three chunk boundaries
@@ -2938,10 +2967,12 @@ def train_split(fn):
 
 
 def train_cfg(arch):
-    layers = TRAIN_LAYERS[arch]
+    """``TRAIN_LAYERS`` decoder layers (an encoder–decoder as many
+    encoder layers)."""
     cfg = ARCHS[arch]
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          num_layers=layers)
+    layers = TRAIN_LAYERS[arch]
+    return dataclasses.replace(cfg, num_layers=layers, encoder_layers=(
+        layers if cfg.encoder_layers else 0))
 
 
 def phase_train_cell(arch, bytes_a_param):
@@ -4007,8 +4038,17 @@ GEMMA_RING_SEQ = 32          # reduced gemma3-4b on 4 model ranks: a shard of
                              # 8 rows, its window of 8 one hop of the ring
 
 
+#: phase 26's full-width depths: (decoder layers, encoder layers)
+MODEL_DEPTHS = {"falcon-mamba-7b": (1, 0), "hymba-1.5b": (2, 0),
+                "internvl2-26b": (1, 0), "seamless-m4t-large-v2": (1, 1)}
+
+
 def model_cfg(arch):
-    return dataclasses.replace(ARCHS[arch], num_layers=MODEL_LAYERS)
+    """Full width cut to ``MODEL_LAYERS`` (phase 25) or to
+    ``MODEL_DEPTHS`` (phase 26)."""
+    layers, enc = MODEL_DEPTHS.get(arch, (MODEL_LAYERS, 0))
+    return dataclasses.replace(ARCHS[arch], num_layers=layers,
+                               encoder_layers=enc)
 
 
 def reduced_cfg(arch):
@@ -4016,8 +4056,13 @@ def reduced_cfg(arch):
 
 
 def model_batch(cfg, seq):
-    return CohortTokenLoader(cfg.vocab_size, seq_len=seq,
-                             n_cohorts=4).round_batch(8, 0)
+    """Phase 11's batch (8 sequences of ``seq`` tokens) and, for a
+    frontend config, ``round_setup``'s stub embeddings."""
+    batch = CohortTokenLoader(cfg.vocab_size, seq_len=seq,
+                              n_cohorts=4).round_batch(8, 0)
+    if cfg.frontend:
+        batch["frontend"] = front_embeddings(cfg, 8, 2, "cpu").numpy()
+    return batch
 
 
 @contextlib.contextmanager
@@ -4040,6 +4085,27 @@ def model_part_counted_twice(mesh):
         del wire.all_reduce
 
 
+def xproj_unsummed():
+    """A planted fault for phase 26: each model rank's ``x_proj`` product
+    over its d_inner slice used without the model group's psum."""
+    return replaced(ssm_mod, "_ssm_inputs", lambda inputs: (
+        lambda cfg, params, u, contract=None: inputs(cfg, params, u)))
+
+
+def encoder_sp_causal():
+    """A planted fault for phase 26: the context-parallel flash run with
+    a causal mask in the encoder's layers (the decoder's are causal)."""
+    return replaced(attn_mod, "flash_self_attention_sp", lambda sp: (
+        lambda q, k, v, window, causal, *args, **kw: sp(
+            q, k, v, window, True, *args, **kw)))
+
+
+#: each fault round's planted fault, made from the rank's mesh
+MODEL_FAULTS = {"fault": model_part_counted_twice,
+                "fault_xproj": lambda mesh: xproj_unsummed(),
+                "fault_causal": lambda mesh: encoder_sp_causal()}
+
+
 def model_wire(row):
     """The model group's traffic of one rank's round: calls, bytes sent
     and seconds, over every ``model_*`` kind; and the tier all-reduce's
@@ -4055,14 +4121,15 @@ def model_wire(row):
 
 
 def model_rank(rank, device, runs):
-    """What each rank of phase 25 runs: for each run ``(label, arch,
-    full, shape, seq, rounds)`` a trainer on ``shape`` from seed-0 params
-    (``full``: full width at ``MODEL_LAYERS`` layers, bf16; else reduced
-    fp32); ``rounds`` names them in order: "cold" (int8 from the seed-0
-    params), "warm" (int8 from the cold round's), "none" and "fault"
-    (int8 with model rank 1's part counted twice), each but "warm" from
-    the seed-0 params.  -> {label: {round: rank_round's row with the
-    params' digest}}; rank 0 also returns the reduced runs' params."""
+    """What each rank of phases 25 and 26 runs: for each run ``(label,
+    arch, full, shape, seq, rounds)`` a trainer on ``shape`` from seed-0
+    params (``full``: full width at ``model_cfg``'s depth, bf16; else
+    reduced fp32); ``rounds`` names them in order: "cold" (int8 from the
+    seed-0 params), "warm" (int8 from the cold round's), "none" and the
+    "fault" rounds (int8 with a ``MODEL_FAULTS`` fault planted), each
+    but "warm" from the seed-0 params.  -> {label: {round: rank_round's
+    row with the params' digest}}; rank 0 also returns the reduced runs'
+    params."""
     exact_matmuls()
     out = {}
     for label, arch, full, shape, seq, rounds in runs:
@@ -4077,8 +4144,8 @@ def model_rank(rank, device, runs):
         for name in rounds:
             t = trainers["none" if name == "none" else "int8"]
             start = t8.params if name == "warm" else p0
-            fault = (lambda: model_part_counted_twice(mesh)) \
-                if name == "fault" else contextlib.nullcontext
+            fault = (lambda: MODEL_FAULTS[name](mesh)) \
+                if name.startswith("fault") else contextlib.nullcontext
             row = rank_round(t, start, batch, fault)
             row["digest"] = digest(t.params)
             if rank == 0 and not full:
@@ -4115,20 +4182,25 @@ def model_reference(arch, full, pods, seq, comps):
     return out, steps, n_leaves
 
 
-def model_checks(label, rows, ref, steps, full, n_pods, leaves):
-    """The checks of one phase-25 run against the one-process round:
-    every rank's params bit-identical after each round; full width, the
-    cold round's update norm within ``DIST_NORM_RTOL`` (relative) and
-    its loss within ``DIST_LOSS_ATOL``, the fault's norm outside; reduced,
-    ``none`` within ``DIST_NONE_ATOL``, int8 within the two-part limit
-    and the fault above it; quantize once a leaf and dequantize once a
-    leaf and pod on every rank of an int8 round.  -> the run's row."""
+def model_checks(label, rows, ref, steps, full, n_pods, leaves, phase=25,
+                 extra=None):
+    """The checks of one phase-25 or phase-26 run against the
+    one-process round: every rank's params bit-identical after each
+    round; full width, the cold round's update norm within
+    ``DIST_NORM_RTOL`` (relative) and its loss within ``DIST_LOSS_ATOL``,
+    each fault's norm outside; reduced, ``none`` within
+    ``DIST_NONE_ATOL``, int8 within the two-part limit and each fault
+    above it; quantize once a leaf and dequantize once a leaf and pod on
+    every rank of an int8 round.  ``extra``: more keys for the run's
+    ``model_round`` line.  -> the run's row."""
     per = [r[label] for r in rows]
     rounds = list(per[0])
+    faults = [n for n in rounds if n.startswith("fault")]
     same = {n: len({p[n]["digest"] for p in per}) == 1 for n in rounds}
     rec = per[0]["cold"]["rec"]
     want = ref["int8"][0]
-    out = {"run": label, "ranks": len(per), "rounds": rounds,
+    out = {"phase": phase, "run": label, "ranks": len(per),
+           "rounds": rounds, **(extra or {}),
            "ranks_bit_identical": same,
            "cold_s": max(p["cold"]["wall_s"] for p in per),
            "peak_gb_cold": [p["cold"]["peak_gb"] for p in per],
@@ -4142,18 +4214,19 @@ def model_checks(label, rows, ref, steps, full, n_pods, leaves):
     launches = check_rank_launches(label, [{"rounds": p} for p in per],
                                    "cold", leaves, n_pods)
     out["quantize_launches"], out["dequantize_launches"] = launches
-    ok = all(same.values())
+    ok, fault_ok = all(same.values()), True
     if full:
         norm = abs(rec["update_norm"] / want["update_norm"] - 1)
-        fault = abs(per[0]["fault"]["rec"]["update_norm"]
-                    / want["update_norm"] - 1)
         loss = abs(rec["loss"] - want["loss"])
         out.update(update_norm_rel=norm, loss_abs_err=loss,
-                   fault_update_norm_rel=fault,
                    limits={"update_norm_rel": DIST_NORM_RTOL,
                            "loss_abs": DIST_LOSS_ATOL})
+        for n in faults:
+            rel = abs(per[0][n]["rec"]["update_norm"]
+                      / want["update_norm"] - 1)
+            out[f"{n}_update_norm_rel"] = rel
+            fault_ok = fault_ok and rel > DIST_NORM_RTOL
         ok = ok and norm <= DIST_NORM_RTOL and loss <= DIST_LOSS_ATOL
-        fault_ok = fault > DIST_NORM_RTOL
     else:
         got = per[0]["cold"]["params"]
         share, worst, lim = int8_limit(got, ref["int8"][1], steps)
@@ -4165,24 +4238,26 @@ def model_checks(label, rows, ref, steps, full, n_pods, leaves):
                       zip(per[0]["none"]["params"], ref["none"][1]))
             out["none_max_abs_err"] = err
             ok = ok and err <= DIST_NONE_ATOL
-        fs, fw, flim = int8_limit(per[0]["fault"]["params"], ref["int8"][1],
-                                  steps)
-        out["fault"] = {"share_over_1e-5": fs, "worst_in_steps": fw,
-                        "ok": flim}
-        fault_ok = not flim
+        for n in faults:
+            fs, fw, flim = int8_limit(per[0][n]["params"], ref["int8"][1],
+                                      steps)
+            out[n] = {"share_over_1e-5": fs, "worst_in_steps": fw,
+                      "ok": flim}
+            fault_ok = fault_ok and not flim
     log("model_round " + json.dumps(out))
     if not ok:
-        raise AssertionError(f"phase 25 {label}: against the one-process "
-                             f"round or across ranks: {out}")
+        raise AssertionError(f"phase {phase} {label}: against the "
+                             f"one-process round or across ranks: {out}")
     if not fault_ok:
-        raise AssertionError(f"phase 25 {label}: model rank 1's part "
-                             "counted twice stayed inside the limit")
+        raise AssertionError(f"phase {phase} {label}: a planted fault "
+                             f"({', '.join(faults)}) stayed inside the "
+                             "limit")
     return out
 
 
 MODEL_RUNS = {
     2: [("llama_112", LM_ARCH, True, (1, 1, 2), FUSED_SEQ,
-         ("cold", "warm", "fault")),
+         ("cold", "fault")),
         ("deepseek_112", MOE_ARCH, True, (1, 1, 2), FUSED_SEQ,
          ("cold", "fault")),
         ("llama_112_reduced", LM_ARCH, False, (1, 1, 2), 64,
@@ -4190,83 +4265,265 @@ MODEL_RUNS = {
         ("deepseek_112_reduced", MOE_ARCH, False, (1, 1, 2), 64,
          ("cold", "fault"))],
     4: [("llama_212", LM_ARCH, True, (2, 1, 2), FUSED_SEQ,
-         ("cold", "warm", "fault")),
+         ("cold", "fault")),
         ("gemma_114_reduced", "gemma3-4b", False, (1, 1, 4),
          GEMMA_RING_SEQ, ("cold", "none", "fault"))]}
 
 
-def model_references():
-    """Phase 25's one-process rounds on the card, each from seed-0 params:
-    full width int8 on (1,1,1) and (2,1,1) for llama3.2-3b and on (1,1,1)
-    for deepseek-v2-lite-16b; reduced fp32 ``none`` and int8 (with the
+def model_references(runs):
+    """The one-process rounds on the card that ``runs`` are held against,
+    each from seed-0 params: full width int8 on a (pods, 1, 1) mesh; a
+    reduced config's ``none`` (where a run has one) and int8 (with the
     int8 limit's steps).  -> {"full", "reduced", "leaves"}."""
     full, red, leaves = {}, {}, {}
-    for arch, pods in ((LM_ARCH, 1), (LM_ARCH, 2), (MOE_ARCH, 1)):
-        full[arch, pods], _, leaves[arch, True] = model_reference(
-            arch, True, pods, FUSED_SEQ, ("int8",))
-    for arch, seq, comps in ((LM_ARCH, 64, ("none", "int8")),
-                             (MOE_ARCH, 64, ("int8",)),
-                             ("gemma3-4b", GEMMA_RING_SEQ, ("none", "int8"))):
-        *red[arch], leaves[arch, False] = model_reference(arch, False, 1,
-                                                          seq, comps)
+    for label, arch, f, shape, seq, rounds in runs:
+        if f and (arch, shape[0]) not in full:
+            full[arch, shape[0]], _, leaves[arch, True] = model_reference(
+                arch, True, shape[0], seq, ("int8",))
+        elif not f and arch not in red:
+            comps = ("none", "int8") if "none" in rounds else ("int8",)
+            *red[arch], leaves[arch, False] = model_reference(
+                arch, False, 1, seq, comps)
     return {"full": full, "reduced": red, "leaves": leaves}
+
+
+def model_rows(refs, got, table, phase, extra=lambda label: None):
+    """Each run of ``table`` ({world: runs}) checked against its
+    one-process round (``model_checks``).  ``got[world]``: each rank's
+    ``model_rank`` result.  -> {label: row}."""
+    rows = {}
+    for world, runs in table.items():
+        for label, arch, f, shape, seq, _ in runs:
+            ref = refs["full"][arch, shape[0]] if f \
+                else refs["reduced"][arch][0]
+            steps = None if f else refs["reduced"][arch][1]
+            rows[label] = model_checks(label, got[world], ref, steps, f,
+                                       shape[0], refs["leaves"][arch, f],
+                                       phase, extra(label))
+    return rows
+
+
+def took_collective(phase, rows, label, kind):
+    """A run's cold round must have sent ``kind`` over the model group."""
+    kinds = rows[label]["wire_cold_rank0"]["model_by_kind"]
+    if not kinds.get(kind, {}).get("calls"):
+        raise AssertionError(f"phase {phase}: {label} sent no {kind}: "
+                             f"{kinds}")
 
 
 def phase_model_axis(refs, got):
     """Phase 25: the model axis across ranks, the ranks time-sharing the
     one card over gloo (``MODEL_RUNS``; the ranks are phase 24's, which
     run these after their phase-24 rounds).  World 2 on (1,1,2):
-    full-width llama3.2-3b at 2 layers, two int8 rounds (cold, then warm
-    from the first's params) and a faulted one; full-width
+    full-width llama3.2-3b at 2 layers, one int8 round and a faulted one
+    (the warm round was cut to keep the script within half its limit);
+    full-width
     deepseek-v2-lite-16b at 2 layers (its layer 1 MoE, 32 experts a
     rank), one int8 round and a faulted one; reduced fp32 llama3.2-3b
     (``none``, int8, faulted) and deepseek-v2-lite-16b (int8, faulted).
-    World 4: full-width llama3.2-3b on (2,1,2), two int8 rounds and a
+    World 4: full-width llama3.2-3b on (2,1,2), one int8 round and a
     faulted one; reduced fp32 gemma3-4b on (1,1,4), S 32 (the ring),
     ``none``, int8 and faulted.  Each run against the one-process round
     of the same params and batch on this card (``model_checks``).
     ``got[world]``: each rank's ``model_rank`` result."""
-    rows = {}
-    for world, runs in MODEL_RUNS.items():
-        for label, arch, f, shape, seq, _ in runs:
-            ref = refs["full"][arch, shape[0]] if f \
-                else refs["reduced"][arch][0]
-            steps = None if f else refs["reduced"][arch][1]
-            rows[label] = model_checks(label, got[world], ref, steps, f,
-                                       shape[0], refs["leaves"][arch, f])
-    ring = rows["gemma_114_reduced"]["wire_cold_rank0"]["model_by_kind"]
-    if not ring.get("model_ppermute", {}).get("calls"):
-        raise AssertionError(f"phase 25: gemma3-4b on (1,1,4) took no ring "
-                             f"hop: {ring}")
+    rows = model_rows(refs, got, MODEL_RUNS, 25)
+    took_collective(25, rows, "gemma_114_reduced", "model_ppermute")
     return {"rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the SSM, hybrid, frontend and encoder configs on the model
+# axis, and serving across ranks through fl/round.py's serving steps
+# ---------------------------------------------------------------------------
+
+FALCON, HYMBA = SSM_ARCHS
+INTERNVL, SEAMLESS = FRONT_ARCHS
+MODEL26_RUNS = {
+    2: [("falcon_112", FALCON, True, (1, 1, 2), FUSED_SEQ,
+         ("cold", "warm")),
+        ("hymba_112", HYMBA, True, (1, 1, 2), FUSED_SEQ, ("cold", "warm")),
+        ("internvl_112", INTERNVL, True, (1, 1, 2), FUSED_SEQ,
+         ("cold", "warm")),
+        ("seamless_112", SEAMLESS, True, (1, 1, 2), FUSED_SEQ,
+         ("cold", "warm")),
+        ("falcon_112_reduced", FALCON, False, (1, 1, 2), 64,
+         ("cold", "none", "fault", "fault_xproj")),
+        ("seamless_112_reduced", SEAMLESS, False, (1, 1, 2), 64,
+         ("cold", "none", "fault", "fault_causal"))],
+    4: [("hymba_114_reduced", HYMBA, False, (1, 1, 4), GEMMA_RING_SEQ,
+         ("cold", "none", "fault")),
+        ("internvl_114_reduced", INTERNVL, False, (1, 1, 4), 64,
+         ("cold", "none", "fault"))]}
+SERVE26_STEPS = 8
+
+
+def serve26_cfg():
+    """Phase 26's serve run: hymba-1.5b at full width and phase 26's
+    depth, in fp32 (phase 20's parity tolerance is an fp32 one)."""
+    return dataclasses.replace(model_cfg(HYMBA), dtype="float32")
+
+
+def serve_through_steps(mesh, device):
+    """hymba-1.5b (``serve26_cfg``, seed-0 params) through
+    ``build_prefill_step`` and ``build_decode_step`` on ``mesh``: a
+    prefill of ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens, then
+    ``SERVE26_STEPS`` greedy decode steps, with the launch counts zeroed
+    just before and read just after.  -> {"logits" (B, 1 + steps, V) on
+    the host, "tokens", "digest" of the logits, "prefill_s", "decode_s",
+    "launches", "peak_gb"}."""
+    cfg = serve26_cfg()
+    opts = dataclasses.replace(
+        serve_options(cfg, mesh),
+        prefill_cache_capacity=LM_PROMPT + SERVE26_STEPS + 8)
+    prefill, model = build_prefill_step(cfg, mesh, opts)
+    decode, _ = build_decode_step(cfg, mesh)
+    params = model.init(seed=0, device=device)
+    prompts = torch.from_numpy(TokenTaskStream(
+        cfg.vocab_size, LM_PROMPT, seed=1).batch(LM_BATCH)["tokens"]).to(
+            device)
+    for k in all_kernels():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, toks, lat = [logits], [logits[:, -1].argmax(-1)[:, None]], []
+    for i in range(SERVE26_STEPS):
+        t0 = time.perf_counter()
+        logits, caches = decode(params, toks[-1], caches, LM_PROMPT + i)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        out.append(logits)
+        toks.append(logits[:, -1].argmax(-1)[:, None])
+    logits = torch.cat(out, 1)
+    row = {"logits": logits.cpu(), "tokens": torch.cat(toks, 1).cpu(),
+           "digest": digest([logits]), "prefill_s": prefill_s,
+           "decode_s": lat,
+           "launches": {k.name: k.launches for k in all_kernels()
+                        if k.launches},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, caches, logits, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_rank(rank, device):
+    """Phase 26's serve run on a rank of world 2, on (1,1,2)."""
+    mesh = make_debug_mesh((1, 1, 2), DIST_AXES)
+    mesh.wire.stats.clear()
+    row = serve_through_steps(mesh, device)
+    row["wire"] = {k: dict(v) for k, v in mesh.wire.stats.items()}
+    return row
+
+
+def phase_model_serve(ref, rows):
+    """Phase 26's serve check: every rank's logits bit-identical (sha256),
+    the greedy tokens the one-process serve's and the logits within
+    ``LM_PARITY_ATOL`` (phase 20's) of it; no kernel launched (the
+    prefill's attention is the plain flash path, as under the JAX
+    ``build_prefill_step``'s ``chunked_sp``).  -> the ``model_serve`` line's row."""
+    same = len({r["digest"] for r in rows}) == 1
+    err = float((rows[0]["logits"] - ref["logits"]).abs().max())
+    tokens = bool((rows[0]["tokens"] == ref["tokens"]).all())
+    cfg = serve26_cfg()
+    out = {"phase": 26, "arch": HYMBA, "mesh": [1, 1, 2],
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "steps": SERVE26_STEPS,
+           "ranks_bit_identical": same, "same_greedy_tokens": tokens,
+           "max_abs_diff_one_process": err, "atol": LM_PARITY_ATOL,
+           "prefill_s": max(r["prefill_s"] for r in rows),
+           "prefill_s_one_process": ref["prefill_s"],
+           "decode_p50_ms": 1e3 * max(float(np.median(r["decode_s"]))
+                                      for r in rows),
+           "decode_p50_ms_one_process": 1e3 * float(
+               np.median(ref["decode_s"])),
+           "peak_gb": [r["peak_gb"] for r in rows],
+           "launches": [r["launches"] for r in rows],
+           "wire_rank0": rows[0]["wire"]}
+    log("model_serve " + json.dumps(out))
+    if not (same and tokens and err <= LM_PARITY_ATOL):
+        raise AssertionError(f"phase 26 serve: {out}")
+    if any(r["launches"] for r in rows) or ref["launches"]:
+        raise AssertionError(f"phase 26 serve launched a kernel: {out}")
+    return out
+
+
+def reckoned_part(arch, full):
+    """The fp32 gradient part a rank all-reduces, from ``param_count()``
+    at the run's depth."""
+    cfg = model_cfg(arch) if full else reduced_cfg(arch)
+    n = cfg.param_count()
+    return {"param_count": n, "reckoned_part_gb": 4 * n / 1e9}
+
+
+def phase_model_axis_26(refs, got, serve_ref):
+    """Phase 26 (``MODEL26_RUNS``, in the ranks of phases 24 and 25 after
+    their rounds): world 2 on (1,1,2), full width in bf16 from seed-0
+    params, phase 11's batch: falcon-mamba-7b at 1 layer (d_inner split
+    over the model ranks), hymba-1.5b at 2 (the window of 1024 on 1000
+    rows a rank takes the all-gather), internvl2-26b at 1 with 256 stub
+    patches a sequence (F + S = 768 rows split), seamless-m4t-large-v2
+    at 1 encoder and 1 decoder layer with 512 stub frames (the encoder
+    non-causal through the context-parallel flash); each a cold int8
+    round and a warm one against the one-process round of the same
+    params and batch; reduced fp32 falcon-mamba-7b and
+    seamless-m4t-large-v2 with model rank 1's part counted twice and,
+    each, its family's fault (the ``x_proj`` product unsummed, the
+    encoder run causal); then hymba-1.5b served through the serving steps
+    (``phase_model_serve``).  World 4 on (1,1,4): reduced fp32
+    hymba-1.5b at 32 tokens (its window of 8 takes the ring) and
+    internvl2-26b (4 patches + 64 tokens split into 4), each with a part
+    counted twice.  ``got[world]``: each rank's ``model_rank`` result;
+    ``serve_ref``: the one-process serve."""
+    runs = {label: (arch, f) for w in MODEL26_RUNS.values()
+            for label, arch, f, *_ in w}
+    rows = model_rows(refs, got["model"], MODEL26_RUNS, 26,
+                      lambda label: reckoned_part(*runs[label]))
+    # an attention-free model gathers only the scan's y and state
+    for label in ("falcon_112", "falcon_112_reduced"):
+        took_collective(26, rows, label, "model_all_gather")
+    took_collective(26, rows, "hymba_114_reduced", "model_ppermute")
+    serve = phase_model_serve(serve_ref, got["serve"])
+    return {"rows": rows, "serve": serve}
+
+
 def rank_phases(rank, device, world):
-    """What each rank of phases 24 and 25 runs, in one process: phase
+    """What each rank of phases 24, 25 and 26 runs, in one process: phase
     24's rounds (``dist_rank``: (2,1,1) in world 2, (2,2,1) in world 4),
-    then phase 25's (``model_rank`` over ``MODEL_RUNS[world]``), so a
-    world starts once and pays a fresh process's first touch once.
-    -> {"dist", "model", "seconds" of each}."""
+    then phase 25's (``model_rank`` over ``MODEL_RUNS[world]``), then
+    phase 26's (``MODEL26_RUNS[world]``, and in world 2 the serve run),
+    so a world starts once and pays a fresh process's first touch once.
+    -> {"dist", "model", "model26", "serve26", "seconds" of each}."""
     t0 = time.perf_counter()
     dist = dist_rank(rank, device, (2, 1, 1) if world == 2 else (2, 2, 1),
                      world == 2)
     t1 = time.perf_counter()
     model = model_rank(rank, device, MODEL_RUNS[world])
-    return {"dist": dist, "model": model,
-            "seconds": {"phase_24": t1 - t0,
-                        "phase_25": time.perf_counter() - t1}}
+    t2 = time.perf_counter()
+    model26 = model_rank(rank, device, MODEL26_RUNS[world])
+    serve26 = serve_rank(rank, device) if world == 2 else None
+    return {"dist": dist, "model": model, "model26": model26,
+            "serve26": serve26,
+            "seconds": {"phase_24": t1 - t0, "phase_25": t2 - t1,
+                        "phase_26": time.perf_counter() - t2}}
 
 
 def phase_ranks():
-    """Phases 24 and 25, which share one spawn a world (``rank_phases``):
-    phase 25's one-process references first, then phase 24 (which
-    spawns each world and checks its part), then phase 25's checks.
-    A world's start and its ranks' first touch count in phase 24; phase
-    25's time is its references, its checks and, a world, the slowest
-    rank's phase-25 rounds.  -> (phase 24's result, phase 25's)."""
+    """Phases 24, 25 and 26, which share one spawn a world
+    (``rank_phases``): the one-process references of phases 25 and 26
+    first, then phase 24 (which spawns each world and checks its part),
+    then the checks of phases 25 and 26.  A world's start and its ranks'
+    first touch count in phase 24; phase 25's and 26's time is each's
+    references, checks and, a world, the slowest rank's rounds.  -> (phase
+    24's result, phase 25's, phase 26's)."""
     t0 = time.perf_counter()
-    refs = model_references()
+    refs = model_references([r for w in MODEL_RUNS.values() for r in w])
     ref_s = time.perf_counter() - t0
+    refs26 = model_references([r for w in MODEL26_RUNS.values() for r in w])
+    serve_ref = serve_through_steps(make_debug_mesh((1, 1, 1), DIST_AXES), "cuda")
+    ref26_s = time.perf_counter() - t0 - ref_s
     got = {}
 
     def spawn(world):
@@ -4278,28 +4535,36 @@ def phase_ranks():
     t2 = time.perf_counter()
     model = phase_model_axis(refs, {w: [r["model"] for r in rows]
                                     for w, rows in got.items()})
-    ranks25 = {w: max(r["seconds"]["phase_25"] for r in rows)
-               for w, rows in got.items()}
-    model.update(references_s=ref_s, ranks_s=ranks25,
-                 phase_25_s=ref_s + sum(ranks25.values())
-                 + time.perf_counter() - t2)
-    dist["phase_24_s"] = t2 - t1 - sum(ranks25.values())
-    log("phases_24_25 " + json.dumps({
+    t3 = time.perf_counter()
+    model26 = phase_model_axis_26(refs26, {
+        "model": {w: [r["model26"] for r in rows]
+                  for w, rows in got.items()},
+        "serve": [r["serve26"] for r in got[2]]}, serve_ref)
+    ranks_s = {k: {w: max(r["seconds"][k] for r in rows)
+                   for w, rows in got.items()}
+               for k in ("phase_24", "phase_25", "phase_26")}
+    model.update(references_s=ref_s, ranks_s=ranks_s["phase_25"],
+                 phase_25_s=ref_s + sum(ranks_s["phase_25"].values())
+                 + t3 - t2)
+    model26.update(references_s=ref26_s, ranks_s=ranks_s["phase_26"],
+                   phase_26_s=ref26_s + sum(ranks_s["phase_26"].values())
+                   + time.perf_counter() - t3)
+    dist["phase_24_s"] = t2 - t1 - sum(ranks_s["phase_25"].values()) \
+        - sum(ranks_s["phase_26"].values())
+    log("phases_24_26 " + json.dumps({
         "phase_24_s": dist["phase_24_s"], "phase_25_s": model["phase_25_s"],
-        "phase_25_references_s": ref_s, "phase_25_ranks_s": ranks25,
-        "ranks_s": {w: {k: max(r["seconds"][k] for r in rows)
-                        for k in ("phase_24", "phase_25")}
-                    for w, rows in got.items()},
-        "wall_s": time.perf_counter() - t0}))
-    return dist, model
+        "phase_26_s": model26["phase_26_s"],
+        "phase_25_references_s": ref_s, "phase_26_references_s": ref26_s,
+        "ranks_s": ranks_s, "wall_s": time.perf_counter() - t0}))
+    return dist, model, model26
 
 
-def model_launches(kern, model):
-    """A quantize kernel's launches on each rank of phase 25's int8
-    rounds."""
+def model_launches(kern, model, phase=25):
+    """A quantize kernel's launches on each rank of phase 25's or 26's
+    int8 rounds."""
     key = ("quantize_launches" if kern is QUANTIZE
            else "dequantize_launches")
-    return {f"phase 25: {label}, int8 round, each rank": row[key]
+    return {f"phase {phase}: {label}, int8 round, each rank": row[key]
             for label, row in model["rows"].items()}
 
 
@@ -4307,6 +4572,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+
+    # each phase group's wall, printed as the ``phase_seconds`` line
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
 
     # phase 1: device
     card = device_line()
@@ -4329,6 +4602,7 @@ def main() -> int:
     log(f"build: {', '.join(str(l.relative_to(ROOT)) for l in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
     copy_bps = copy_bandwidth()
+    lap("1-2 device, build, copy rate")
     log(f"copy bandwidth: {copy_bps / 1e9:.1f} GB/s device-to-device "
         f"(nominal {NOMINAL_BPS / 1e9:.0f})")
 
@@ -4338,27 +4612,34 @@ def main() -> int:
     # phase 4: engine
     stage_s = phase_engine()
 
+    lap("3-4 kernels, engine")
+
     # phase 5: the main path
     rounds, launches, k_main = phase_round()
     phase_parity()
+    lap("5 ResNet round, parity")
 
     # phases 6-8: the flash kernels, the serve path, the LM checks
     flash_rows = phase_flash()
     serve_row, flash_launches, flash_main = phase_serve(copy_bps)
     fp32_row, fp32_dev = phase_fp32_prefill()
     tf32_lm_launches = phase_lm_checks()
+    lap("6-8 flash, serve, fp32 prefill, LM checks")
 
     # phase 18: MoE / MLA serving, full-width deepseek-v2-lite-16b
     moe_row = phase_moe_serve(copy_bps)
+    lap("18 MoE serve")
 
     # phases 10-12: the quantize kernels, the fused round, its parity
     _, quant_rows = phase_quant()
     fused_row, fused_dev = phase_fused_round()
     phase_round_parity()
+    lap("10-12 quantize, fused round, parity")
 
     # phase 19: the MoE / MLA fused round, deepseek-v2-lite-16b
     moe_round, moe_round_dev, _ = phase_moe_round()
     launches19 = moe_round["launches_int8"]
+    lap("19 MoE round")
 
     # phase 20: SSM / hybrid serving, full-width falcon-mamba-7b and
     # hymba-1.5b (phase 19's model is freed)
@@ -4366,6 +4647,7 @@ def main() -> int:
     launches20 = {name: sum(launches[name] for _, launches in
                             ssm_cells.values())
                   for name in ssm_cells[SSM_ARCHS[0]][1]}
+    lap("20 SSM serve")
 
     # phase 21: frontend and encoder-decoder serving, full-width
     # internvl2-26b and seamless-m4t-large-v2 (phase 20's models are
@@ -4376,6 +4658,7 @@ def main() -> int:
     launches21 = {name: sum(launches[name] for _, launches in
                             front_cells.values())
                   for name in front_cells[FRONT_ARCHS[0]][1]}
+    lap("21 frontend serve")
 
     # phases 22-23: the fused round of internvl2-26b and
     # seamless-m4t-large-v2, then of falcon-mamba-7b and hymba-1.5b, at
@@ -4390,6 +4673,7 @@ def main() -> int:
     train_s = {"phase_22_s": t23 - t22,
                "phase_23_s": time.perf_counter() - t23}
     train_cells = {**front_train, **ssm_train}
+    lap("22-23 frontend and SSM rounds")
 
     def train_launches(kern, phase, cells):
         """A kernel's launches in each of a phase's int8 rounds."""
@@ -4417,6 +4701,7 @@ def main() -> int:
     ingest_row = phase_serve_ingest(fleet)
     check_fold_launches("the serve round", ingest_row["launches"],
                         ("eager_accumulate",))
+    lap("13-15 shmproc, multinode, serve mode")
 
     # phases 16-17: the always-on service over phase 5's fleet, and job
     # a's checkpoint; the engines' fold speedup for the simulator
@@ -4428,12 +4713,14 @@ def main() -> int:
     speedup = engine_speedup()
     log("engine_speedup " + json.dumps(speedup))
     del fleet, svc_params
+    lap("16-17 service, checkpoint")
 
-    # phases 24-25: the fused round with one process a mesh coordinate,
+    # phases 24-26: the fused round with one process a mesh coordinate,
     # the ranks on this card over gloo, then the model axis across ranks
     # in the same rank processes
     torch.cuda.empty_cache()
-    dist, model = phase_ranks()
+    dist, model, model26 = phase_ranks()
+    lap("24-26 ranks")
 
     # phase 9: summary at the main paths' shapes (f32 wire; the lazy
     # round's largest burst for fedavg_accumulate_k): the phase-3 rows
@@ -4562,10 +4849,14 @@ def main() -> int:
                 **train_launches(kern, 22, front_train),
                 **train_launches(kern, 23, ssm_train),
                 **dist_launches(kern, dist),
-                **model_launches(kern, model)},
+                **model_launches(kern, model),
+                **model_launches(kern, model26, 26)},
             **{k: r[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape", "rows")}})
+    lap("9 kernels line")
+    log("phase_seconds " + json.dumps(
+        {**phase_s, "script_s": time.perf_counter() - SCRIPT_T0}))
     log("summary " + json.dumps({
         "rounds": len(rounds),
         "client_train_s": sum(r["trace_client_train_s"] for r in rounds),
@@ -4613,6 +4904,11 @@ def main() -> int:
            for label, row in model["rows"].items()
            for key in ("cold_s", "warm_s") if key in row},
         "model_phase_25_s": model["phase_25_s"],
+        **{f"model26_{label}_{key}": row[key]
+           for label, row in model26["rows"].items()
+           for key in ("cold_s", "warm_s") if key in row},
+        "model26_serve_prefill_s": model26["serve"]["prefill_s"],
+        "model26_phase_26_s": model26["phase_26_s"],
         "shmproc_warm_wall_s": shm_row["warm_wall_s"],
         "shmproc_fork_cold_s": shm_row["stats"]["cold_latency_s"],
         "shmproc_fork_warm_s": shm_row["stats"]["warm_latency_s"],

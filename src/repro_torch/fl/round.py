@@ -50,8 +50,14 @@ The step runs in one process or with one process a mesh coordinate
   weight of the whole microbatch.
 
 Sidecar metrics (loss, update norm, aggregate weight, updates folded)
-are computed in the step.  The serving and dry-run builders of the JAX
-module are not part of the port's training path.
+are computed in the step.
+
+The serving steps (``build_prefill_step``, ``build_decode_step``) take
+the JAX package's options on the same mesh: across ranks a rank serves
+its (pod, data) coordinate's rows, and the ranks of a model group split
+the regions as the train step does and return the same bits.  The JAX
+module's dry-run helpers (abstract params and inputs, shardings) are
+not ported.
 """
 from __future__ import annotations
 
@@ -347,3 +353,75 @@ def _pod_slice(x: torch.Tensor, i: int, n_pods: int) -> torch.Tensor:
         f"global batch {x.shape[0]} not divisible by {n_pods} pods")
     b = x.shape[0] // n_pods
     return x[i * b:(i + 1) * b]
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
+
+
+def serve_options(cfg: ArchConfig, mesh, prefill: bool = True
+                  ) -> ModelOptions:
+    """The options the serving steps take when given none: the JAX
+    package's on ``mesh``.  The prefill's are ``chunked_sp`` attention
+    and the sharded SSM scan; the decode's leave both at their defaults
+    (a decode step reads neither).  Both take ep for an MoE config and
+    the vocab over the model axis, with the batch over the (pod, data)
+    axes."""
+    over = dict(attn_impl="chunked_sp", ssm_impl="sharded") if prefill \
+        else {}
+    return ModelOptions(
+        moe_impl="ep" if cfg.moe is not None else "dense",
+        dp_axes=mesh_dp_axes(mesh), model_axis="model", vocab_axis="model",
+        mesh=mesh, **over)
+
+
+def serve_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The rows of a whole serving batch that this rank serves: the
+    block of its (pod, data) coordinate, row-major, among P·D equal
+    blocks (the whole batch in one process)."""
+    if not mesh.distributed:
+        return x
+    blocks = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+    if x.shape[0] % blocks:
+        raise ValueError(f"a serving batch of {x.shape[0]} does not split "
+                         f"into {blocks} (pod, data) blocks")
+    at = mesh.coord("pod") * mesh.shape.get("data", 1) + mesh.coord("data")
+    k = x.shape[0] // blocks
+    return x[at * k:(at + 1) * k]
+
+
+def build_prefill_step(cfg: ArchConfig, mesh,
+                       opts: Optional[ModelOptions] = None):
+    """-> (prefill_step(params, batch) -> (logits (B_r, 1, V) fp32 of the
+    last position, caches), model); ``opts`` default to
+    :func:`serve_options`.  ``batch`` is the whole ``{"tokens",
+    "frontend"?}``, the same on every rank; a rank serves its (pod,
+    data) rows (:func:`serve_rows`) and returns their logits and decode
+    caches.  On a model axis the prefill's attention, SSM scan, experts
+    and logits are split over the model group, whose ranks return the
+    same bits; each SSM layer's cache holds the whole gathered state."""
+    opts = opts or serve_options(cfg, mesh, prefill=True)
+    model = build_model(cfg, opts)
+
+    def prefill_step(params, batch):
+        return model.prefill(params, {k: serve_rows(v, mesh)
+                                      for k, v in batch.items()})
+
+    return prefill_step, model
+
+
+def build_decode_step(cfg: ArchConfig, mesh,
+                      opts: Optional[ModelOptions] = None):
+    """-> (decode_step(params, tokens, caches, pos) -> (logits (B_r, 1, V)
+    fp32, caches written in place), model); ``opts`` default to
+    :func:`serve_options`.  ``tokens`` (B_r, 1) are this rank's rows, as
+    its prefill's logits pick them, and ``caches`` its prefill's.  On a
+    model axis attention and the SSM step run replicated, ep splits the
+    experts over the model group at the reference's capacity (drops
+    included), and the logits are gathered over the vocab shards
+    (``sharded_vocab.decode_logits``): every rank of the group returns
+    the same bits."""
+    model = build_model(cfg, opts or serve_options(cfg, mesh,
+                                                   prefill=False))
+    return model.decode_step, model

@@ -17,10 +17,12 @@ set of axes: the ranks that differ only on those axes.  The pod tier's
 collectives run over the pod group, the data tier's over the data
 group (with the model group folded in, ``fl/round.py``), and the
 model's own regions over the model group (``launch/dist.py``'s
-differentiable collectives): context-parallel flash, the vocab-sharded
-embedding and loss, and expert-parallel MoE.  In one process a
-``model`` axis above 1 is refused.  :func:`require_one_device` refuses
-what of the model axis is not ported yet (ROADMAP A.8, part 2).
+differentiable collectives): context-parallel flash (an encoder's
+non-causal layers and a frontend's patches in front of the text too),
+the vocab-sharded embedding and loss, expert-parallel MoE and the SSM
+scan's d_inner.  In one process a ``model`` axis above 1 is refused;
+across ranks a shape that does not split over the model axis is
+refused by its region, by name.
 """
 from __future__ import annotations
 
@@ -193,15 +195,3 @@ def model_shards(mesh: Optional[Mesh], axis: str, what: str) -> int:
             f"{what}: a computation over the {axis!r} mesh axis needs the "
             f"mesh that names it (ROADMAP A.8); pass ModelOptions(mesh=...)")
     return mesh.shape.get(axis, 1)
-
-
-def require_one_device(mesh: Optional[Mesh], axis: str, what: str) -> None:
-    """Refuse, naming ``what``, a model computation over a named axis
-    that the port cannot run sharded: without a mesh (as
-    :func:`model_shards`), and above size 1, which is not ported yet
-    (ROADMAP A.8, part 2).  A size-1 axis is the unsharded computation."""
-    if model_shards(mesh, axis, what) > 1:
-        raise NotImplementedError(
-            f"{what}: a computation sharded over the {axis!r} mesh axis "
-            "is not ported yet (ROADMAP A.8, part 2); run it with a "
-            f"{axis!r} axis of size 1")

@@ -28,6 +28,13 @@ the cross-entropy (the labels cover the text only); an encoder–decoder's
 encoder and ``frontend_proj`` take their gradient through every decoder
 layer's cross-attention.  SSM and hybrid configs train with either scan
 (``ssm_impl="sharded"`` is the fused round's, ``models/ssm.py``).
+
+On a model axis across ranks (``ModelOptions(mesh=...)``) every family
+runs as in the JAX package's step: ``chunked_sp`` splits the rows of
+each self-attention layer (a decoder-only frontend's F + S rows, an
+encoder's frames, non-causal), the decoder's cross-attention runs
+replicated over the whole memory, the SSM scan shards d_inner, and the
+vocab and the experts are sharded as for the dense and MoE families.
 """
 from __future__ import annotations
 
@@ -49,32 +56,10 @@ from repro_torch.models.transformer import ModelOptions
 MOE_AUX_WEIGHT = 0.01
 
 
-def _refuse_unported_model_axis(cfg: ArchConfig, opts: ModelOptions) -> None:
-    """What of a model axis across ranks is not ported yet, by name
-    (ROADMAP A.8, part 2): the sharded SSM scan's model axis, and the
-    frontend and encoder configs."""
-    mesh = opts.mesh
-    m = mesh.shape.get(opts.model_axis, 1) if mesh is not None else 1
-    if m == 1:
-        return
-    what = None
-    if cfg.attention_free or cfg.hybrid_parallel_ssm:
-        what = (f"{cfg.name}'s SSM layers: ssm_scan_sharded over the "
-                f"{opts.model_axis!r} axis")
-    elif cfg.frontend or cfg.encoder_layers:
-        what = (f"{cfg.name}'s {cfg.frontend or 'encoder'} frontend and "
-                "encoder")
-    if what:
-        raise NotImplementedError(
-            f"{what} on a {opts.model_axis!r} axis of size {m} is not ported "
-            "yet (ROADMAP A.8, part 2)")
-
-
 class LM:
     def __init__(self, cfg: ArchConfig, opts: Optional[ModelOptions] = None):
         self.cfg = cfg
         self.opts = opts or ModelOptions()
-        _refuse_unported_model_axis(cfg, self.opts)
         self.specs = tfm.layer_specs(cfg)
         self.enc_specs = tfm.encoder_specs(cfg)
         self.dtype = getattr(torch, cfg.dtype)
@@ -147,8 +132,29 @@ class LM:
         fx = self._project_frontend(params, frontend)
         return torch.cat([fx, x], dim=1), fx.shape[1]
 
+    def _check_split(self, tokens, frontend) -> None:
+        """Refuse, by name, rows that ``chunked_sp`` cannot split over a
+        model axis above 1: an encoder's frames, or a decoder-only
+        frontend's F patches and S tokens together (checked before the
+        forward's first collective; a plain sequence is refused by
+        ``flash_self_attention_sp``)."""
+        cfg, opts = self.cfg, self.opts
+        if (opts.attn_impl != "chunked_sp" or opts.mesh is None
+                or not cfg.frontend or frontend is None):
+            return
+        m = opts.mesh.shape.get(opts.model_axis, 1)
+        F, S = frontend.shape[1], tokens.shape[1]
+        if self.enc_specs and F % m:
+            raise ValueError(f"{cfg.name}: {F} frames do not split over "
+                             f"{m} {opts.model_axis!r} ranks")
+        if not self.enc_specs and (F + S) % m:
+            raise ValueError(f"{cfg.name}: F + S = {F} patches + {S} "
+                             f"tokens do not split over {m} "
+                             f"{opts.model_axis!r} ranks")
+
     def _forward(self, params, tokens, frontend=None, collect_cache=False):
         """-> (hidden, aux, caches, the number of patches in front)."""
+        self._check_split(tokens, frontend)
         memory = self._encode(params, frontend) if self.enc_specs else None
         x, n_front = self._embed_inputs(params, tokens, frontend)
         positions = torch.arange(x.shape[1], device=x.device)

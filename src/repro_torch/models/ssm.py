@@ -22,12 +22,17 @@ dtype before the gate.  ``softplus`` is ``jax.nn.softplus``'s
 ``F.softplus``, which switches to the identity above 20.
 
 ``ssm_scan_sharded`` is the ``shard_map`` form that ``ModelOptions(
-ssm_impl="sharded")`` selects, the fused round's scan, at a model axis of
-size 1 (a larger one, or no mesh, is refused: ROADMAP A.8).  There the
-psum over the ``x_proj`` contraction is the identity, so its inputs are
-``_ssm_inputs``'s.  Each chunk body runs under ``torch.utils.checkpoint``
-(non-reentrant, so it nests inside a layer's remat), as under
-``jax.checkpoint``: the backward recomputes the chunk from its carry.
+ssm_impl="sharded")`` selects, the fused round's scan and a model-axis
+prefill's.  Across ranks it shards d_inner over the model axis, as the
+JAX region does: rank i takes d_inner's slice ``[i·d/m, (i+1)·d/m)`` of
+``u``, ``h0`` and the five scan params, the ``x_proj`` contraction is
+summed over the model group (the region's one psum), and ``y`` and the
+final state are gathered back whole.  At size 1 the psum is the
+identity and the inputs are ``_ssm_inputs``'s; without a mesh the named
+axis is refused (ROADMAP A.8).  Each chunk body runs under
+``torch.utils.checkpoint`` (non-reentrant, so it nests inside a layer's
+remat), as under ``jax.checkpoint``: the backward recomputes the chunk
+from its carry.
 Its default in-chunk form (``intra_chunk="seq"``) steps ``h = a_t·h +
 b_t`` one position at a time, ``ssm_decode``'s arithmetic, and never
 holds a (B, chunk, d_inner, N) tensor; ``"assoc"`` is the associative
@@ -45,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.mesh import require_one_device
+from repro_torch.launch import dist
+from repro_torch.launch.mesh import model_shards
 from repro_torch.models.layers import dense_init
 
 
@@ -95,11 +101,16 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _ssm_inputs(cfg: ArchConfig, params: dict, u: torch.Tensor):
-    """u: (B,S,d_in) post-conv activations -> (dt, B_t, C_t, A)."""
+def _ssm_inputs(cfg: ArchConfig, params: dict, u: torch.Tensor,
+                contract=None):
+    """u: (B,S,d_in) post-conv activations -> (dt, B_t, C_t, A).
+    ``contract``: applied to the ``x_proj`` product (the model group's
+    sum when d_in is a rank's slice)."""
     N = cfg.ssm.d_state
     dt_rank = params["dt_proj"].shape[0]
     proj = u @ params["x_proj"]                     # (B,S,dt_rank+2N)
+    if contract is not None:
+        proj = contract(proj)
     dt_low = proj[..., :dt_rank]
     B_t = proj[..., dt_rank:dt_rank + N].float()
     C_t = proj[..., dt_rank + N:].float()
@@ -210,22 +221,56 @@ def _chunk_assoc(h, A, dt_c, dtu_c, B_c, C_c):
     return h_t[:, -1], torch.einsum("bcdn,bcn->bcd", h_t, C_c)
 
 
+#: the scan's params and the dim of each that d_inner runs along (the
+#: JAX region's ``pspecs``)
+SCAN_PARAM_DIMS = {"x_proj": 0, "dt_proj": 1, "dt_bias": 0, "A_log": 0,
+                   "D": 0}
+
+
+def _model_slice(params: dict, u, h0, mesh, model_axis: str, m: int):
+    """This model rank's d_inner slice of the scan's params, ``u`` (dim
+    2) and ``h0`` (dim 1)."""
+    d_in = u.shape[2]
+    if d_in % m:
+        raise ValueError(f"ssm_scan_sharded: a d_inner of {d_in} does not "
+                         f"split over {m} {model_axis!r} ranks")
+    n = d_in // m
+    lo = mesh.coord(model_axis) * n
+    local = {k: params[k].narrow(dim, lo, n)
+             for k, dim in SCAN_PARAM_DIMS.items()}
+    return local, u.narrow(2, lo, n), h0.narrow(1, lo, n)
+
+
 def ssm_scan_sharded(cfg: ArchConfig, params: dict, u: torch.Tensor,
                      h0: torch.Tensor, *, chunk: int, dp_axes,
                      model_axis: str, intra_chunk: str = "seq", mesh=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The JAX package's ``ssm_scan_sharded`` at a model axis of size 1:
-    u (B,S,d_in), h0 (B,d_in,N) fp32 -> (y (B,S,d_in) fp32, rounded once
-    to u's dtype, h_final).  ``dp_axes`` shard the batch, which one card
-    holds whole."""
-    require_one_device(mesh, model_axis, "ssm_scan_sharded")
+    """The JAX package's ``ssm_scan_sharded``: u (B,S,d_in), h0
+    (B,d_in,N) fp32 -> (y (B,S,d_in) fp32, rounded once to u's dtype,
+    h_final (B,d_in,N)).  ``dp_axes`` shard the batch, whose rows a rank
+    is handed already.  Above size 1 the model axis shards d_inner
+    (module docstring): u, h0 and the params are whole on every rank,
+    as the computation around the region is replicated, and each rank
+    takes its slice; a d_inner that does not split over the axis is
+    refused."""
+    m = model_shards(mesh, model_axis, "ssm_scan_sharded")
     if intra_chunk not in ("seq", "assoc"):
         raise ValueError(f"unknown intra_chunk {intra_chunk!r}")
     from torch.utils.checkpoint import checkpoint
 
+    contract = None
+    if m > 1:
+        params, u, h0 = _model_slice(params, u, h0, mesh, model_axis, m)
+
+        # the JAX region's psum over the sharded contraction; a bf16
+        # partial product is summed in fp32 (gloo has no bf16 sum, where
+        # XLA's psum adds bf16) and rounded once to u's dtype
+        def contract(proj):
+            return dist.psum(proj.float(), mesh, model_axis).to(proj.dtype)
+
     S = u.shape[1]
     c = scan_chunk(S, chunk)
-    dt, B_t, C_t, A = _ssm_inputs(cfg, params, u)
+    dt, B_t, C_t, A = _ssm_inputs(cfg, params, u, contract)
     uf = u.float()
     dtu = dt * uf
     # looked up at each call, so a planted fault can replace the body
@@ -235,8 +280,11 @@ def ssm_scan_sharded(cfg: ArchConfig, params: dict, u: torch.Tensor,
         h, y_c = checkpoint(body, h, A, *(t[:, lo:lo + c] for t in (
             dt, dtu, B_t, C_t)), use_reentrant=False)
         ys.append(y_c)
-    y = torch.cat(ys, dim=1) + uf * params["D"]
-    return y.to(u.dtype).float(), h
+    y = (torch.cat(ys, dim=1) + uf * params["D"]).to(u.dtype)
+    if m > 1:
+        y = dist.all_gather(y, mesh, model_axis, dim=2)
+        h = dist.all_gather(h, mesh, model_axis, dim=1)
+    return y.float(), h
 
 
 def ssm_block(cfg: ArchConfig, params: dict, x: torch.Tensor,
@@ -247,7 +295,8 @@ def ssm_block(cfg: ArchConfig, params: dict, x: torch.Tensor,
     scan ``ssm_scan_sharded``'s when ``sharded``, else the chunked one.
     ``return_state``: -> (out, {"h", "conv"}), the scan's final state
     and the last ``d_conv - 1`` pre-conv inputs, the decode cache that
-    the JAX package takes from a second scan of the same inputs."""
+    the JAX package takes from a second scan of the same inputs; across
+    model ranks the state is the sharded scan's, gathered whole."""
     B = x.shape[0]
     d_in = params["dt_proj"].shape[1]
     xz = x @ params["in_proj"]

@@ -10,6 +10,7 @@ import contextlib
 
 import torch
 
+from _torch_model_ranks import ragged_ssm_cfg, step_on
 from repro_torch.configs import ARCHS
 from repro_torch.fl import compression
 from repro_torch.fl.round import AggregationConfig, build_train_step
@@ -90,20 +91,20 @@ def ring_cases(rank, device, cases):
 
 def refusals(rank, device):
     """What a mesh over ranks refuses; -> {case: the error's text}:
-    "model" is an SSM config on a model axis of 2, "moe" a frontend
-    config there (both still unported)."""
+    "model" is an SSM config whose d_inner does not split over a model
+    axis of 2, "moe" a frontend config whose patches and tokens do not
+    split there."""
     world = torch.distributed.get_world_size()
     out = {}
     for case, make in {
             "world": lambda: make_debug_mesh((world * 2, 1, 1), AXES),
-            "model": lambda: build_train_step(
-                ARCHS["falcon-mamba-7b"].reduced(),
+            "model": lambda: step_on(
+                ragged_ssm_cfg("falcon-mamba-7b"),
+                make_debug_mesh((world // 2, 1, 2), AXES)),
+            "moe": lambda: step_on(
+                ARCHS["internvl2-26b"].reduced(dtype="float32"),
                 make_debug_mesh((world // 2, 1, 2), AXES),
-                AggregationConfig(num_microbatches=2)),
-            "moe": lambda: build_train_step(
-                ARCHS["internvl2-26b"].reduced(),
-                make_debug_mesh((world // 2, 1, 2), AXES),
-                AggregationConfig(num_microbatches=2))}.items():
+                tokens=15)}.items():
         try:
             make()
         except (ValueError, NotImplementedError) as e:

@@ -182,10 +182,34 @@ def trainer_rounds(rank, device, arch, shape, init, batches):
     return [_np(p) for p in tree_leaves(t.params)], t.history
 
 
+def ragged_ssm_cfg(arch, d_model=63):
+    """``arch`` reduced with a d_inner (``expand`` 1, d_model 63) that no
+    even number of ranks splits."""
+    cfg = cfg_of(arch)
+    return dataclasses.replace(cfg, d_model=d_model, ssm=dataclasses.replace(
+        cfg.ssm, expand=1))
+
+
+def step_on(cfg, mesh, tokens=16, frames=None):
+    """One round of ``cfg`` on ``mesh`` from seed-0 params on a batch of 4
+    sequences of ``tokens`` (with ``frames`` stub rows for a frontend
+    config)."""
+    step, model = build_train_step(cfg, mesh,
+                                   AggregationConfig(num_microbatches=2))
+    params = model.init(0, device="cpu")
+    toks = torch.zeros(4, tokens, dtype=torch.long)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.frontend:
+        batch["frontend"] = torch.zeros(
+            4, frames or cfg.frontend_tokens, cfg.d_model)
+    step(params, init_server_state("fedavg", params), batch)
+
+
 def refusals(rank, device):
-    """What a model axis of 2 over ranks refuses; -> {case: the error's
-    text}."""
-    agg = AggregationConfig(num_microbatches=2)
+    """What a model axis of 2 over ranks refuses, by name; -> {case: the
+    error's text}: a d_inner that does not split (an SSM and a hybrid
+    config), a decoder-only frontend's F + S rows, an encoder's frames,
+    a ragged sequence and experts that do not split."""
     mesh = make_debug_mesh((1, 1, 2), AXES)
     x = torch.zeros(1, 5, 1, 1, 8)
 
@@ -204,14 +228,12 @@ def refusals(rank, device):
 
     out = {}
     for case, make in {
-            "ssm": lambda: build_train_step(cfg_of("falcon-mamba-7b"), mesh,
-                                            agg),
-            "hybrid": lambda: build_train_step(cfg_of("hymba-1.5b"), mesh,
-                                               agg),
-            "frontend": lambda: build_train_step(cfg_of("internvl2-26b"),
-                                                 mesh, agg),
-            "encoder": lambda: build_train_step(
-                cfg_of("seamless-m4t-large-v2"), mesh, agg),
+            "ssm": lambda: step_on(ragged_ssm_cfg("falcon-mamba-7b"), mesh),
+            "hybrid": lambda: step_on(ragged_ssm_cfg("hymba-1.5b"), mesh),
+            "frontend": lambda: step_on(cfg_of("internvl2-26b"), mesh,
+                                        tokens=15),
+            "encoder": lambda: step_on(cfg_of("seamless-m4t-large-v2"), mesh,
+                                       frames=5),
             "ragged": ragged, "experts": experts}.items():
         try:
             make()

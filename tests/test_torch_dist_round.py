@@ -339,8 +339,8 @@ def test_ring_differs_from_a_one_process_mean_only_by_the_int8_step(
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("case,error,text", [
     ("world", "ValueError", "one rank a coordinate"),
-    ("model", "NotImplementedError", "ROADMAP A.8, part 2"),
-    ("moe", "NotImplementedError", "ROADMAP A.8, part 2")])
+    ("model", "ValueError", "a d_inner of 63 does not split over 2"),
+    ("moe", "ValueError", "4 patches + 15 tokens do not split over 2")])
 def test_refusals_across_ranks(world, case, error, text, worlds):
     for res in worlds[world]:
         got = res["refusals"][case]

@@ -937,6 +937,66 @@ def test_two_rank_model_axis_round_on_the_card(card):
         assert out[0][comp]["wire"]["model_all_gather"]["calls"] > 0
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "seamless-m4t-large-v2"])
+def test_two_rank_ssm_and_encoder_model_axis_round_on_the_card(card, arch):
+    """Two gloo ranks on the card on a (1,1,2) mesh, reduced fp32
+    falcon-mamba-7b (the SSM scan's d_inner split over the model ranks)
+    and seamless-m4t-large-v2 (the encoder's non-causal layers through
+    the context-parallel flash, 4 stub frames) from seed-0 params: both
+    ranks' params bit-identical; uncompressed within atol 5e-5 of the
+    one-process round on the card; int8 with at most 0.1 % of elements
+    over 1e-5 from it, quantize and dequantize once a leaf on each
+    rank."""
+    import numpy as np
+
+    import _torch_model_ranks as ranks
+    from repro_torch.configs import ARCHS
+    from repro_torch.fl.round import AggregationConfig, build_train_step
+    from repro_torch.fl.server import init_server_state
+    from repro_torch.launch.dist import spawn_ranks
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.tree import tree_leaves
+
+    cfg = ARCHS[arch].reduced(dtype="float32")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(8, 32))
+    labels = np.roll(toks, -1, 1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.frontend:
+        batch["frontend"] = rng.normal(
+            size=(8, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    mesh = make_debug_mesh((1, 1, 1), ("pod", "data", "model"))
+    init, want = None, {}
+    for comp in ("none", "int8"):
+        step, model = build_train_step(cfg, mesh, AggregationConfig(
+            compress=comp, num_microbatches=2))
+        params = model.init(0, device=card)
+        init = [t.cpu().numpy() for t in tree_leaves(params)]
+        new, _, _ = step(params, init_server_state("fedavg", params),
+                         {k: torch.from_numpy(v).to(card)
+                          for k, v in batch.items()})
+        want[comp] = [t.cpu().numpy() for t in tree_leaves(new)]
+    out = spawn_ranks(ranks.two_rank_round_on_card, 2, arch, init, batch,
+                      timeout_s=300)
+    leaves = len(init)
+    for comp in ("none", "int8"):
+        got = out[0][comp]["params"]
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(got, out[1][comp]["params"]))
+        d = np.concatenate([np.abs(g.astype(np.float64) - w).ravel()
+                            for g, w in zip(got, want[comp])])
+        if comp == "none":
+            assert d.max() <= 5e-5, d.max()
+        else:
+            assert (d > 1e-5).mean() <= 1e-3
+            for res in out:
+                assert res[comp]["launches"] == (leaves, leaves)
+        # falcon-mamba-7b gathers only its scan's y and state
+        assert out[0][comp]["wire"]["model_all_gather"]["calls"] > 0
+
+
 def _last_axis_blocks(x):
     """A (rows, n) leaf as the int8 hop blocks it: rows of 256 along the
     last axis, zero-padded."""

@@ -425,18 +425,23 @@ def test_ep_matches_the_jax_region(case, shape, cf, worlds, jax_ref):
 
 
 @pytest.mark.parametrize("case,error,text", [
-    ("ssm", "NotImplementedError", "ssm_scan_sharded"),
-    ("hybrid", "NotImplementedError", "ssm_scan_sharded"),
-    ("frontend", "NotImplementedError", "frontend"),
-    ("encoder", "NotImplementedError", "encoder"),
+    ("ssm", "ValueError",
+     "ssm_scan_sharded: a d_inner of 63 does not split over 2 'model'"),
+    ("hybrid", "ValueError",
+     "ssm_scan_sharded: a d_inner of 63 does not split over 2 'model'"),
+    ("frontend", "ValueError",
+     "internvl2-26b: F + S = 4 patches + 15 tokens do not split over 2"),
+    ("encoder", "ValueError",
+     "seamless-m4t-large-v2: 5 frames do not split over 2 'model' ranks"),
     ("ragged", "ValueError", "does not split evenly"),
     ("experts", "ValueError", "7 experts do not split")])
 def test_what_a_model_axis_refuses(case, error, text, worlds):
+    """Every family runs on a model axis; what it refuses is a shape
+    that does not split over the model ranks, by name."""
     for res in worlds[2]:
         got = res["refusals"][case]
         assert got.startswith(error) and text in got, got
-        if error == "NotImplementedError":
-            assert "ROADMAP A.8, part 2" in got
+        assert "ROADMAP A.8, part 2" not in got
 
 
 def test_one_process_refuses_a_model_axis():

@@ -215,12 +215,17 @@ def test_ssm_scan_sharded_matches_jax(seq, chunk, dtype, intra):
 
 
 def test_ssm_scan_sharded_needs_a_model_axis_of_size_1():
-    """Without a mesh the model axis cannot be resolved, and above size 1
-    it shards d_inner across cards: both refused by name (ROADMAP A.8)."""
+    """Without a mesh the model axis cannot be resolved (ROADMAP A.8);
+    above size 1 it shards d_inner over the model ranks, and a d_inner
+    that does not split over them is refused by name before any
+    collective."""
     cfg, jp, u, h0, _, _ = _scan_inputs("float32", 8)
     tp = {k: _torch(v) for k, v in jp.items()}
-    for mesh in (None, types.SimpleNamespace(shape={"data": 1, "model": 2})):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    for mesh, error, text in (
+            (None, NotImplementedError, "ROADMAP A.8"),
+            (types.SimpleNamespace(shape={"data": 1, "model": 3}),
+             ValueError, "a d_inner of 128 does not split over 3 'model'")):
+        with pytest.raises(error, match=text):
             tssm.ssm_scan_sharded(cfg, tp, torch.from_numpy(u),
                                   torch.from_numpy(h0), chunk=4,
                                   dp_axes=("data",), model_axis="model",

@@ -361,8 +361,38 @@ on any fault; it imports nothing of the JAX package.  Phases:
    ring) and internvl2-26b, each with a part counted twice.  One
    ``model_round`` line a run (with ``param_count`` and the reckoned
    fp32 part a rank), one ``model_serve`` line; ``phases_24_26`` splits
-   the three phases' time.  ``phase_seconds`` gives each phase group's
-   wall.
+   the three phases' time (and phase 27's rounds in world 4's ranks).
+   ``phase_seconds`` gives each phase group's wall.
+27. sharded storage and the dry run, in world 4's rank processes after
+   phase 26 (``fsdp_rank``), from seed-0 params and phase 11's batch as
+   one microbatch: full-width llama3.2-3b cut to 2 layers (bf16) with
+   each rank holding only its blocks of ``train_shardings``' specs.
+   (a) (2,2,1), hierarchical, FSDP over ``data``: the replicated
+   ``none`` and int8 rounds first, then the sharded ``none`` round, the
+   int8 round, again from the same blocks (warm), and int8 with data
+   rank 1's part of every data-gathered gradient counted twice.  Each
+   sharded delta (as the server optimizer takes it) against the
+   replicated delta's block of the same rank: ``none`` within
+   ``FSDP_NONE_RTOL`` of each leaf's largest element (the bf16
+   arithmetic moves); int8 element by element within the ``none``
+   round's measured difference plus Σ_p (s_p + s'_p) / 2P, the two
+   rounds' int8 rounding (the share of elements over 1e-5 reported);
+   the fault above; every rank's resident param and state bytes the sum
+   reckoned from the specs, below a replica's; each round's peak below
+   the replicated round's; ranks that hold the same block, and the two
+   int8 rounds, bit-identical; quantize once a leaf and dequantize once
+   a leaf and pod a rank in an int8 round, no other kernel.  (b)
+   (1,2,2), flat ``none``: storage split over ``model`` and, FSDP, over
+   (pod, data), the same checks against (a)'s replicated ``none`` round
+   (a flat round's mean is the hierarchical one's).  One
+   ``fsdp_round`` line a run.  (c) ``launch/dryrun.py``'s dry run of
+   (a)'s cell, rank 0 under fake tensors on the CPU, must predict rank
+   0's resident bytes and its wire's calls and bytes by kind exactly
+   (``fsdp_dryrun``).  (d) the card's bf16 matmul rate (8192³
+   ``torch.mm``, CUDA events) beside (c)'s FLOPs (``bf16_matmul``); a
+   production cell's dry run (llama3.2-3b × train_4k × multi, 512
+   ranks) is CPU work of a minute or two, run by
+   ``python -m repro_torch.launch.dryrun``, not here.
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
 phase 14 in netd and at the controller, phase 15, phase 16, phase 19,
@@ -370,7 +400,7 @@ phase 20, phase 21, each arch's round in phases 22 and 23; each flash
 kernel its launches on every path that runs attention, phases 20's to
 23's models included, and its non-causal case (phase 6, seamless's
 encoder shape); each quantize kernel its launches in phases 11 and 19
-to 23, and on each rank of phases 24, 25 and 26.
+to 23, and on each rank of phases 24 to 27.
 """
 from __future__ import annotations
 
@@ -398,7 +428,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.api import Session  # noqa: E402
 from repro_torch.checkpoint import (AsyncCheckpointer,  # noqa: E402
                                     restore_checkpoint)
-from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs import ARCHS, ShapeConfig  # noqa: E402
 from repro_torch.configs.resnet import RESNET18  # noqa: E402
 from repro_torch.convert import (flatten_jax_layout,  # noqa: E402
                                unflatten_jax_layout)
@@ -412,10 +442,12 @@ from repro_torch.data import (ClientShard, build_client_datasets,  # noqa: E402
 from repro_torch.data.loader import CohortTokenLoader  # noqa: E402
 from repro_torch.data.synthetic import TokenTaskStream  # noqa: E402
 from repro_torch.fl import compression  # noqa: E402
+from repro_torch.fl import round as fl_round  # noqa: E402
 from repro_torch.fl.round import (AggregationConfig,  # noqa: E402
-                                  accumulate_updates, build_decode_step,
-                                  build_prefill_step, serve_options,
-                                  train_options)
+                                  abstract_params, accumulate_updates,
+                                  build_decode_step, build_prefill_step,
+                                  build_train_step, serve_options,
+                                  train_options, train_shardings)
 from repro_torch.fl.server import (apply_server_opt,  # noqa: E402
                                   init_server_state)
 from repro_torch.kernels.fedavg import fedavg as fed  # noqa: E402
@@ -432,8 +464,9 @@ from repro_torch.kernels.quantize.quantize import (  # noqa: E402
     DEQUANTIZE, KERNELS as Q_KERNELS, LIB as Q_LIB, QUANTIZE,
     dequantize_cuda, quantize_cuda)
 from repro_torch.launch.dist import spawn_ranks  # noqa: E402
+from repro_torch.launch.dryrun import dry_run_cell  # noqa: E402
 from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
-                                     make_host_mesh)
+                                     make_host_mesh, stand_in_mesh)
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
@@ -449,6 +482,8 @@ from repro_torch.runtime.netrt import (RemoteRuntime, connect,  # noqa: E402
 from repro_torch.obs import summary_line  # noqa: E402
 from repro_torch.serve import (AdmissionPolicy, AggregationService,  # noqa: E402
                                MinCohortIdleGap)
+from repro_torch.sharding.rules import (block_bytes,  # noqa: E402
+                                        shard_leaf, shard_tree, split_over)
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,  # noqa: E402
                               tree_unflatten)
 
@@ -4489,13 +4524,448 @@ def phase_model_axis_26(refs, got, serve_ref):
     return {"rows": rows, "serve": serve}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: sharded storage across ranks (FSDP over the batch axes, TP
+# storage over the model axis), and the dry run
+# ---------------------------------------------------------------------------
+
+#: the sharded round's bf16 arithmetic against the replicated round's: the
+#: gathers' adjoint rounds a leaf's gradient summed over the data ranks
+#: to bf16 once a microbatch (``launch/dist.py``), where the replicated
+#: round sums bf16 gradients in fp32, and each microbatch's bf16 backward
+#: runs from a seed of its weight, where the replicated round multiplies
+#: after, so every rounding of the backward moves.  Two such bf16
+#: computations differ by a few ulps (2^-8) of a leaf's scale (reduced
+#: bf16 llama3.2-3b on 4 CPU ranks read up to 0.0093 of the leaf's
+#: largest element, at wk): a sharded delta within 2^-5 of its leaf's
+#: largest element of the replicated delta, with 3x headroom
+FSDP_NONE_RTOL = 2.0 ** -5
+#: phase 27's runs on world 4: (label, mesh, hierarchy, sharded rounds);
+#: each round takes phase 11's batch as one microbatch (the gathers and
+#: their adjoints run once a microbatch: two would double the wire)
+FSDP_RUNS = (("a", (2, 2, 1), "hierarchical",
+              ("none", "int8_cold", "int8_warm", "int8_fault")),
+             ("b", (1, 2, 2), "flat", ("none",)))
+FSDP_MICRO = 1
+
+
+@contextlib.contextmanager
+def kept_deltas(kept):
+    """Each round's delta as the rank step hands it to the server
+    optimizer (this rank's blocks, or whole leaves), appended to
+    ``kept``."""
+    orig = fl_round.apply_server_opt
+
+    def keep(name, params, state, delta, **kw):
+        kept.append([d.detach() for d in tree_leaves(delta)])
+        return orig(name, params, state, delta, **kw)
+
+    fl_round.apply_server_opt = keep
+    try:
+        yield kept
+    finally:
+        fl_round.apply_server_opt = orig
+
+
+@contextlib.contextmanager
+def pod_scales(kept):
+    """The int8 scales of this pod's delta as it enters the pod hop: one
+    ``(safe scales, last)`` a leaf appended to ``kept``.  The quantize
+    launches of this capture are not the round's: its counts are put
+    back."""
+    orig = compression.pod_mean_compressed
+
+    def keep(delta, pod, *args, **kw):
+        counts = {k: k.launches for k in all_kernels()}
+        for leaf in tree_leaves(delta):
+            _, safe, last = compression._quantize_blocks_last_axis(leaf, 256)
+            kept.append((safe, last))
+        for k, n in counts.items():
+            k.launches = n
+        return orig(delta, pod, *args, **kw)
+
+    compression.pod_mean_compressed = keep
+    try:
+        yield kept
+    finally:
+        compression.pod_mean_compressed = orig
+
+
+@contextlib.contextmanager
+def shard_counted_twice(mesh):
+    """A planted fault for phase 27: data rank 1's part of every gradient
+    gathered over the data axis enters the gathers' adjoint sum twice."""
+    wire, orig = mesh.wire, mesh.wire.all_reduce
+
+    def faulted(tensors, group, kind, **kw):
+        if kind == "data_psum" and mesh.coord("data") == 1:
+            for t in tensors:
+                t.mul_(2)
+        return orig(tensors, group, kind, **kw)
+
+    wire.all_reduce = faulted
+    try:
+        yield
+    finally:
+        del wire.all_reduce
+
+
+def block_hash(t: torch.Tensor, piece: int = 1 << 24) -> int:
+    """A 64-bit hash of a tensor's bits on its device (phase 27's ranks
+    compare their blocks by it; sha256 on the host took a second a round
+    and rank): Σ word_i · m_i mod 2^64 over its 16- or 32-bit words, m_i
+    odd, so a changed word always changes it; ``piece`` words at a time."""
+    words = t.detach().contiguous().view(-1).view(
+        {2: torch.int16, 4: torch.int32}[t.element_size()])
+    h = torch.zeros((), dtype=torch.int64, device=t.device)
+    for a in range(0, words.numel(), piece):
+        w = words[a:a + piece].long()
+        m = torch.arange(a, a + w.numel(), device=t.device) \
+            * 0x5851F42D4C957F2D + 0x14057B7EF767814F
+        h += (w * (m | 1)).sum()
+    return int(h)
+
+
+def fsdp_round(mesh, step, params, state, batch, fault=None):
+    """One round of a rank with its launch counts, wire statistics and
+    peak zeroed just before and read just after -> (row, the delta's
+    leaves as the server optimizer took them, the new params)."""
+    for k in all_kernels():
+        k.launches = 0
+    mesh.wire.stats.clear()
+    kept = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with kept_deltas(kept), (fault(mesh) if fault
+                             else contextlib.nullcontext()):
+        new, _, metrics = step(params, state, batch)
+    torch.cuda.synchronize()
+    row = {"wall_s": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "launches": {k.name: k.launches for k in all_kernels()
+                        if k.launches},
+           "wire": {k: {"calls": v["calls"], "bytes": v["bytes"],
+                        "seconds": v["seconds"]}
+                    for k, v in mesh.wire.stats.items()}}
+    return row, kept[0], new
+
+
+def none_readings(got, want, maxes, piece=1 << 24):
+    """A sharded ``none`` delta's blocks against the replicated delta's
+    (on the host) -> (the largest difference over ``FSDP_NONE_RTOL``
+    times its leaf's largest replicated element: <= 1, the differences
+    |got - want| a leaf on the host, fp32).  ``piece`` elements at a
+    time on the card (four ranks share it), in fp64."""
+    share, gaps = 0.0, []
+    for g, w, m in zip(got, want, maxes):
+        allow = FSDP_NONE_RTOL * float(m)
+        gap = torch.empty(g.shape, dtype=torch.float32)
+        flat, g, w = gap.view(-1), g.reshape(-1), w.reshape(-1)
+        for a in range(0, g.numel(), piece):
+            d = (g[a:a + piece].double()
+                 - w[a:a + piece].to(g.device).double()).abs()
+            share = max(share, float(d.max()) / max(allow, 1e-30))
+            flat[a:a + piece] = d.float().cpu()
+        gaps.append(gap)
+    return share, gaps
+
+
+def int8_readings(got, want, gaps, steps, piece=1 << 24):
+    """A sharded int8 delta's blocks against the replicated int8 delta's,
+    with the same round's measured ``none`` gap as the allowance: int8
+    adds to each pod's delta its rounding, which the two rounds' scales
+    s_p and s'_p bound by (s_p + s'_p) / 2, so |int8 difference| <=
+    |none difference| + Σ_p (s_p + s'_p) / 2P (``steps``) + 1e-5 -> (the
+    share of elements over 1e-5, reported: the bf16 arithmetic moves
+    most; the largest (|int8 difference| - |none difference| - 1e-5) in
+    steps: <= 1)."""
+    over, n, worst = 0, 0, float("-inf")
+    for g, w, gap, st in zip(got, want, gaps, steps):
+        g, w = g.reshape(-1), w.reshape(-1)
+        gap, st = gap.reshape(-1), st.reshape(-1)
+        for a in range(0, g.numel(), piece):
+            d = (g[a:a + piece].double()
+                 - w[a:a + piece].to(g.device).double()).abs()
+            over += int((d > 1e-5).sum())
+            n += d.numel()
+            d -= gap[a:a + piece].to(g.device).double() + 1e-5
+            worst = max(worst, float(
+                (d / st[a:a + piece].to(g.device).double()).max()))
+    return over / n, worst
+
+
+def pod_step_sums(scales, deltas, mesh, specs=None):
+    """Σ_p s_p per element of this rank's block: the int8 scales of each
+    leaf's blocks (``pod_scales``) summed over the pods and repeated
+    over their blocks, cut to this rank's block of ``specs`` where the
+    deltas were whole leaves; on the host."""
+    safe = [s for s, _ in scales]
+    mesh.wire.all_reduce(safe, mesh.group("pod"), "steps")
+    out = []
+    for i, ((s, last), d) in enumerate(zip(scales, deltas)):
+        st = s.repeat_interleave(min(256, last), -1)[..., :last].reshape(
+            d.shape)
+        out.append((st if specs is None else shard_leaf(st, specs[i], mesh)
+                    ).cpu())
+    return out
+
+
+def fsdp_run(device, cfg, batch, shape, hier, rounds, whole):
+    """One run of phase 27 on this rank.  With ``whole`` empty (run a):
+    the replicated ``none`` and int8 rounds from seed-0 params first,
+    ``none``'s delta kept whole on the host in ``whole`` (run b holds its
+    blocks to it: a flat round's mean is the hierarchical one's, every
+    microbatch of phase 11's batch having the same weight), int8's
+    blocks of this rank and its scales kept.  Then the sharded rounds
+    from the same params held as this rank's blocks of
+    ``train_shardings``' specs: ``none`` first, whose differences are
+    the int8 rounds' allowance."""
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh(shape, DIST_AXES)
+    agg = {c: AggregationConfig(hierarchy=hier, compress=c,
+                                num_microbatches=FSDP_MICRO)
+           for c in ("none", "int8")}
+    step, model = build_train_step(cfg, mesh, agg["none"])
+    pspecs, sspecs = train_shardings(model, mesh, agg["none"])
+    leaf_specs = tree_leaves(pspecs)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "rounds": {}}
+    ref = {}
+    for comp in () if whole else ("none", "int8"):
+        step, _ = build_train_step(cfg, mesh, agg[comp])
+        params = model.init(0, device=device)
+        scales = []
+        with pod_scales(scales) if comp == "int8" else \
+                contextlib.nullcontext():
+            row, delta, _ = fsdp_round(mesh, step, params,
+                                       init_server_state("fedavg", params),
+                                       batch)
+        whole.setdefault("ref", {})[comp] = {k: row[k]
+                                             for k in ("wall_s", "peak_gb")}
+        if comp == "none":
+            whole["none"] = [d.cpu() for d in delta]
+            # each leaf's largest element of the replicated delta
+            maxes = torch.stack([d.abs().max().float().cpu()
+                                 for d in delta])
+            torch.distributed.all_reduce(maxes,
+                                         op=torch.distributed.ReduceOp.MAX)
+            whole["none_max"] = maxes
+        else:
+            ref["int8"] = [shard_leaf(d, s, mesh).cpu()
+                           for d, s in zip(delta, leaf_specs)]
+            ref["steps"] = pod_step_sums(scales, delta, mesh, leaf_specs)
+        del params, delta
+    out["ref"] = whole["ref"]
+    ref["none"] = [shard_leaf(d, s, mesh)
+                   for d, s in zip(whole["none"], leaf_specs)]
+    torch.cuda.empty_cache()
+    blocks = shard_tree(model.init(0, device=device), pspecs, mesh)
+    # the server state of the blocks is the blocks of the state
+    sblocks = init_server_state("fedavg", blocks)
+    aparams = abstract_params(model)
+    out["resident_bytes"] = sum(t.numel() * t.element_size()
+                                for t in tree_leaves([blocks, sblocks]))
+    out["reckoned_bytes"] = block_bytes(aparams, pspecs, mesh) + \
+        block_bytes(init_server_state("fedavg", aparams), sspecs, mesh)
+    out["replica_bytes"] = sum(t.numel() * t.element_size()
+                               for t in tree_leaves(aparams))
+    out["split_over"] = [list(split_over(s, mesh)) for s in leaf_specs]
+    n_pods = mesh.shape["pod"]
+    for name in rounds:
+        comp = "int8" if name.startswith("int8") else "none"
+        sstep, _ = build_train_step(cfg, mesh, agg[comp],
+                                    in_specs=(pspecs, sspecs))
+        scales = []
+        with pod_scales(scales) if name == "int8_cold" else \
+                contextlib.nullcontext():
+            row, delta, new = fsdp_round(
+                mesh, sstep, blocks, sblocks, batch,
+                shard_counted_twice if name.endswith("fault") else None)
+        if name == "none":
+            share, gaps = none_readings(delta, ref["none"],
+                                        whole["none_max"])
+            row["readings"] = {"none_limit_share": share}
+        elif name != "int8_warm":     # the warm round's bits are the cold's
+            if name == "int8_cold":   # Σ_p (s_p + s'_p) / 2P
+                steps = [(a + b) / (2 * n_pods) for a, b in zip(
+                    ref["steps"], pod_step_sums(scales, delta, mesh))]
+            share, worst = int8_readings(delta, ref["int8"], gaps, steps)
+            row["readings"] = {"int8_share_over_1e5": share,
+                               "int8_worst_steps": worst}
+        if not name.endswith("fault"):
+            row["digests"] = [block_hash(t) for t in tree_leaves(new)]
+        out["rounds"][name] = row
+        del delta, new
+        torch.cuda.empty_cache()    # four ranks share the card
+    del blocks, sblocks
+    torch.cuda.empty_cache()
+    out["run_s"] = time.perf_counter() - t0
+    return out
+
+
+def fsdp_rank(rank, device):
+    """Phase 27 on a rank of world 4: ``FSDP_RUNS`` at full width
+    (llama3.2-3b cut to 2 layers, bf16, seed-0 params, phase 11's
+    batch), run b held to run a's replicated ``none`` round."""
+    exact_matmuls()
+    cfg = dist_cfg()
+    batch = {k: torch.as_tensor(np.asarray(v), device=device)
+             for k, v in CohortTokenLoader(cfg.vocab_size, seq_len=FUSED_SEQ,
+                                           n_cohorts=4).round_batch(
+                 8, 0).items()}
+    whole = {}
+    return {label: fsdp_run(device, cfg, batch, shape, hier, rounds, whole)
+            for label, shape, hier, rounds in FSDP_RUNS}
+
+
+def matmul_rate(n: int = 8192) -> float:
+    """The card's bf16 dense matmul rate in FLOP/s: ``torch.mm`` of two
+    n x n bf16 matrices, CUDA events (``time_ms``)."""
+    g = torch.Generator(device="cuda").manual_seed(27)
+    a = torch.randn(n, n, device="cuda", dtype=torch.bfloat16, generator=g)
+    b = torch.randn(n, n, device="cuda", dtype=torch.bfloat16, generator=g)
+    c = torch.empty_like(a)
+    ms = time_ms(lambda: torch.mm(a, b, out=c), reps=10, inner=5)
+    return 2.0 * n ** 3 / (ms * 1e-3)
+
+
+def check_fsdp_peak(what, row, ref) -> None:
+    """A sharded round's peak below the replicated round's."""
+    if not row["peak_gb"] < ref["peak_gb"]:
+        raise AssertionError(f"{what}: peak {row['peak_gb']:.3f} GB, not "
+                             f"below the replicated round's "
+                             f"{ref['peak_gb']:.3f}")
+
+
+def check_fsdp_launches(what, row, want) -> None:
+    """A sharded round's kernel launches: quantize once a leaf and
+    dequantize once a leaf and pod in an int8 round, nothing else."""
+    if row["launches"] != want:
+        raise AssertionError(f"{what}: launches {row['launches']}, not "
+                             f"{want}")
+
+
+def phase_fsdp(rows):
+    """Phase 27's checks (module docstring), one ``fsdp_round`` line a
+    run, ``fsdp_dryrun`` (the dry run of run a's cell, rank 0, against
+    the real rank 0) and ``bf16_matmul`` (the card's rate beside that
+    cell's FLOPs)."""
+    out = {}
+    leaves = len(tree_leaves(build_model(dist_cfg()).init(0, device="meta")))
+    for label, shape, hier, rounds in FSDP_RUNS:
+        runs = [r[label] for r in rows]
+        n_pods = shape[0]
+        row = {"run": label, "mesh": shape, "hierarchy": hier,
+               "fsdp": "data" if hier == "hierarchical" else "pod,data",
+               "replicated_run": FSDP_RUNS[0][0],
+               "resident_gb": [r["resident_bytes"] / 1e9 for r in runs],
+               "replica_gb": runs[0]["replica_bytes"] / 1e9,
+               "run_s": max(r["run_s"] for r in runs),
+               "replicated_wall_s": {c: max(r["ref"][c]["wall_s"]
+                                            for r in runs)
+                                     for c in runs[0]["ref"]},
+               "replicated_peak_gb": {c: [r["ref"][c]["peak_gb"]
+                                          for r in runs]
+                                      for c in runs[0]["ref"]}}
+        for name in rounds:
+            rr = [r["rounds"][name] for r in runs]
+            row[name] = {
+                "wall_s": max(x["wall_s"] for x in rr),
+                "peak_gb": [x["peak_gb"] for x in rr],
+                "readings": {k: max(x["readings"][k] for x in rr)
+                             for k in rr[0].get("readings", {})},
+                "launches": [x["launches"] for x in rr],
+                "metrics": rr[0]["metrics"],
+                "wire": {k: {"calls": v["calls"], "bytes": v["bytes"],
+                             "seconds": max(x["wire"][k]["seconds"]
+                                            for x in rr)}
+                         for k, v in rr[0]["wire"].items()}}
+        log("fsdp_round " + json.dumps(row))
+        for r in runs:
+            if r["resident_bytes"] != r["reckoned_bytes"] or \
+                    not r["resident_bytes"] < r["replica_bytes"]:
+                raise AssertionError(f"phase 27 {label}: rank {r['rank']} "
+                                     f"holds {r['resident_bytes']} bytes, "
+                                     f"reckoned {r['reckoned_bytes']}")
+            for name, rnd in r["rounds"].items():
+                what = f"phase 27 {label} {name}, rank {r['rank']}"
+                int8 = name.startswith("int8")
+                check_fsdp_peak(what, rnd, r["ref"]["int8" if int8
+                                                   else "none"])
+                check_fsdp_launches(what, rnd, {
+                    QUANTIZE.name: leaves, DEQUANTIZE.name: leaves * n_pods}
+                    if int8 else {})
+                if name == "int8_warm":
+                    continue              # held to the cold round's bits
+                reading = rnd["readings"]
+                bad = reading["int8_worst_steps"] > 1 if int8 else \
+                    reading["none_limit_share"] > 1
+                if name.endswith("fault") != bad:
+                    raise AssertionError(f"{what}: {reading}")
+        # ranks that hold the same block of a leaf hold the same bits
+        for name in (n for n in rounds if not n.endswith("fault")):
+            for i, axes in enumerate(runs[0]["split_over"]):
+                holders = {}
+                for r in runs:
+                    key = tuple(c for a, c in zip(DIST_AXES, r["coords"])
+                                if a in axes)
+                    holders.setdefault(key, set()).add(
+                        r["rounds"][name]["digests"][i])
+                if any(len(d) != 1 for d in holders.values()):
+                    raise AssertionError(f"phase 27 {label} {name}: leaf "
+                                         f"{i}'s holders differ")
+        if "int8_warm" in rounds and any(
+                r["rounds"]["int8_warm"]["digests"]
+                != r["rounds"]["int8_cold"]["digests"] for r in runs):
+            raise AssertionError(f"phase 27 {label}: two int8 rounds from "
+                                 "the same blocks differ")
+        out[label] = row
+    # (c) the dry run of run a's cell, rank 0, against the real rank 0
+    label, shape, hier, _ = FSDP_RUNS[0]
+    t0 = time.perf_counter()
+    cell = dry_run_cell(dist_cfg(), ShapeConfig("phase27", FUSED_SEQ, 8,
+                                                "train"),
+                        stand_in_mesh(shape, DIST_AXES, 0),
+                        AggregationConfig(hierarchy=hier, compress="int8",
+                                          num_microbatches=FSDP_MICRO),
+                        fsdp=("data",))
+    real0 = rows[0][label]
+    real_wire = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                 for k, v in real0["rounds"]["int8_cold"]["wire"].items()}
+    dry = {"resident_bytes": cell["memory"]["resident_bytes"],
+           "real_resident_bytes": real0["resident_bytes"],
+           "wire": cell["wire"], "real_wire": real_wire,
+           "peak_bytes_per_device": cell["memory"]["peak_bytes_per_device"],
+           "real_peak_gb": real0["rounds"]["int8_cold"]["peak_gb"],
+           "flops": cell["cost"]["flops"], "bytes": cell["cost"]["bytes"],
+           "trace_s": cell["trace_s"], "wall_s": time.perf_counter() - t0}
+    log("fsdp_dryrun " + json.dumps(dry))
+    if dry["resident_bytes"] != dry["real_resident_bytes"] or \
+            dry["wire"] != real_wire:
+        raise AssertionError(f"phase 27 (c): the dry run predicted {dry}")
+    # (d) the card's bf16 matmul rate, beside (c)'s roofline (a
+    # production cell's dry run is a CPU job: tests/test_torch_dryrun.py
+    # and ``python -m repro_torch.launch.dryrun``)
+    rate = matmul_rate()
+    log("bf16_matmul " + json.dumps({
+        "card": device_line(), "n": 8192, "flops_per_s": rate,
+        "cell": "phase 27 (a), rank 0", "cell_flops": cell["cost"]["flops"],
+        "compute_s_at_measured_rate": cell["cost"]["flops"] / rate,
+        "roofline": cell["roofline"]}))
+    out["dryrun"] = dry
+    out["matmul_flops"] = rate
+    return out
+
+
 def rank_phases(rank, device, world):
-    """What each rank of phases 24, 25 and 26 runs, in one process: phase
-    24's rounds (``dist_rank``: (2,1,1) in world 2, (2,2,1) in world 4),
-    then phase 25's (``model_rank`` over ``MODEL_RUNS[world]``), then
-    phase 26's (``MODEL26_RUNS[world]``, and in world 2 the serve run),
-    so a world starts once and pays a fresh process's first touch once.
-    -> {"dist", "model", "model26", "serve26", "seconds" of each}."""
+    """What each rank of phases 24 to 27 runs, in one process: phase 24's
+    rounds (``dist_rank``: (2,1,1) in world 2, (2,2,1) in world 4), then
+    phase 25's (``model_rank`` over ``MODEL_RUNS[world]``), then phase
+    26's (``MODEL26_RUNS[world]``, and in world 2 the serve run), then in
+    world 4 phase 27's (``fsdp_rank``), so a world starts once and pays a
+    fresh process's first touch once.  -> {"dist", "model", "model26",
+    "serve26", "fsdp27", "seconds" of each}."""
     t0 = time.perf_counter()
     dist = dist_rank(rank, device, (2, 1, 1) if world == 2 else (2, 2, 1),
                      world == 2)
@@ -4504,26 +4974,31 @@ def rank_phases(rank, device, world):
     t2 = time.perf_counter()
     model26 = model_rank(rank, device, MODEL26_RUNS[world])
     serve26 = serve_rank(rank, device) if world == 2 else None
+    t3 = time.perf_counter()
+    fsdp27 = fsdp_rank(rank, device) if world == 4 else None
     return {"dist": dist, "model": model, "model26": model26,
-            "serve26": serve26,
+            "serve26": serve26, "fsdp27": fsdp27,
             "seconds": {"phase_24": t1 - t0, "phase_25": t2 - t1,
-                        "phase_26": time.perf_counter() - t2}}
+                        "phase_26": t3 - t2,
+                        "phase_27": time.perf_counter() - t3}}
 
 
 def phase_ranks():
-    """Phases 24, 25 and 26, which share one spawn a world
-    (``rank_phases``): the one-process references of phases 25 and 26
-    first, then phase 24 (which spawns each world and checks its part),
-    then the checks of phases 25 and 26.  A world's start and its ranks'
-    first touch count in phase 24; phase 25's and 26's time is each's
-    references, checks and, a world, the slowest rank's rounds.  -> (phase
-    24's result, phase 25's, phase 26's)."""
+    """Phases 24, 25 and 26 and phase 27's rounds, which share one spawn
+    a world (``rank_phases``): the one-process references of phases 25
+    and 26, then phase 24 (which spawns each world and checks
+    its part), then the checks of phases 25 and 26.  A world's start and its
+    ranks' first touch count in phase 24; phase 25's and 26's time is
+    each's references, checks and, a world, the slowest rank's rounds.
+    -> (phase 24's result, phase 25's, phase 26's, phase 27's rows of
+    world 4, the slowest rank's seconds in them)."""
     t0 = time.perf_counter()
     refs = model_references([r for w in MODEL_RUNS.values() for r in w])
     ref_s = time.perf_counter() - t0
     refs26 = model_references([r for w in MODEL26_RUNS.values() for r in w])
     serve_ref = serve_through_steps(make_debug_mesh((1, 1, 1), DIST_AXES), "cuda")
     ref26_s = time.perf_counter() - t0 - ref_s
+    torch.cuda.empty_cache()    # the ranks share the card with this process
     got = {}
 
     def spawn(world):
@@ -4542,21 +5017,32 @@ def phase_ranks():
         "serve": [r["serve26"] for r in got[2]]}, serve_ref)
     ranks_s = {k: {w: max(r["seconds"][k] for r in rows)
                    for w, rows in got.items()}
-               for k in ("phase_24", "phase_25", "phase_26")}
+               for k in ("phase_24", "phase_25", "phase_26", "phase_27")}
     model.update(references_s=ref_s, ranks_s=ranks_s["phase_25"],
                  phase_25_s=ref_s + sum(ranks_s["phase_25"].values())
                  + t3 - t2)
     model26.update(references_s=ref26_s, ranks_s=ranks_s["phase_26"],
                    phase_26_s=ref26_s + sum(ranks_s["phase_26"].values())
                    + time.perf_counter() - t3)
+    rank27_s = sum(ranks_s["phase_27"].values())
     dist["phase_24_s"] = t2 - t1 - sum(ranks_s["phase_25"].values()) \
-        - sum(ranks_s["phase_26"].values())
+        - sum(ranks_s["phase_26"].values()) - rank27_s
     log("phases_24_26 " + json.dumps({
         "phase_24_s": dist["phase_24_s"], "phase_25_s": model["phase_25_s"],
         "phase_26_s": model26["phase_26_s"],
+        "phase_27_ranks_s": rank27_s,
         "phase_25_references_s": ref_s, "phase_26_references_s": ref26_s,
         "ranks_s": ranks_s, "wall_s": time.perf_counter() - t0}))
-    return dist, model, model26
+    return dist, model, model26, [r["fsdp27"] for r in got[4]], rank27_s
+
+
+def fsdp_launches(kern, fsdp):
+    """A quantize kernel's launches on each rank of phase 27's int8
+    rounds."""
+    return {f"phase 27: run {label} (sharded storage), {name}, each rank":
+                [n.get(kern.name, 0) for n in fsdp[label][name]["launches"]]
+            for label, _, _, rounds in FSDP_RUNS
+            for name in rounds if name.startswith("int8")}
 
 
 def model_launches(kern, model, phase=25):
@@ -4719,8 +5205,15 @@ def main() -> int:
     # the ranks on this card over gloo, then the model axis across ranks
     # in the same rank processes
     torch.cuda.empty_cache()
-    dist, model, model26 = phase_ranks()
+    dist, model, model26, fsdp_rows, rank27_s = phase_ranks()
     lap("24-26 ranks")
+
+    # phase 27: sharded storage's checks (its rounds ran in world 4's
+    # ranks above), the dry run of its cell, the bf16 matmul rate
+    fsdp = phase_fsdp(fsdp_rows)
+    lap("27 sharded storage, dry run")
+    phase_s["24-26 ranks"] -= rank27_s
+    phase_s["27 sharded storage, dry run"] += rank27_s
 
     # phase 9: summary at the main paths' shapes (f32 wire; the lazy
     # round's largest burst for fedavg_accumulate_k): the phase-3 rows
@@ -4850,7 +5343,8 @@ def main() -> int:
                 **train_launches(kern, 23, ssm_train),
                 **dist_launches(kern, dist),
                 **model_launches(kern, model),
-                **model_launches(kern, model26, 26)},
+                **model_launches(kern, model26, 26),
+                **fsdp_launches(kern, fsdp)},
             **{k: r[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape", "rows")}})
@@ -4909,6 +5403,10 @@ def main() -> int:
            for key in ("cold_s", "warm_s") if key in row},
         "model26_serve_prefill_s": model26["serve"]["prefill_s"],
         "model26_phase_26_s": model26["phase_26_s"],
+        **{f"fsdp_{label}_{name}_wall_s": fsdp[label][name]["wall_s"]
+           for label, _, _, rounds in FSDP_RUNS for name in rounds},
+        "fsdp_dryrun_trace_s": fsdp["dryrun"]["trace_s"],
+        "bf16_matmul_tflops": fsdp["matmul_flops"] / 1e12,
         "shmproc_warm_wall_s": shm_row["warm_wall_s"],
         "shmproc_fork_cold_s": shm_row["stats"]["cold_latency_s"],
         "shmproc_fork_warm_s": shm_row["stats"]["warm_latency_s"],

@@ -55,24 +55,55 @@ are computed in the step.
 The serving steps (``build_prefill_step``, ``build_decode_step``) take
 the JAX package's options on the same mesh: across ranks a rank serves
 its (pod, data) coordinate's rows, and the ranks of a model group split
-the regions as the train step does and return the same bits.  The JAX
-module's dry-run helpers (abstract params and inputs, shardings) are
-not ported.
+the regions as the train step does and return the same bits.
+
+Sharded storage (FSDP over the batch axes, TP storage over ``model``):
+the builders take ``in_specs``, the specs of :func:`train_shardings` or
+:func:`serve_shardings`, as ``jax.jit`` takes ``in_shardings``.  Each
+rank then holds and is called with only its block of each param and
+server-state leaf (``sharding.shard_tree``) and returns its blocks.  The
+model gathers each leaf whole where it is used (a layer's inside the
+layer's checkpoint, so remat gathers it again in the backward; the
+top-level leaves at the start of the forward), and the gather's adjoint
+sums the gradient over the ranks of the gathered axes and keeps this
+rank's block.  So in the train step:
+
+* the gradient of a leaf gathered over a batch axis is summed over the
+  data ranks *before* the fold weights it, so every microbatch seeds
+  its loss's cotangent with its weight w (``_Part(weighted=True)``);
+* the leaf tier's all-reduce sums each leaf only over the tier's axes
+  its spec does not split (none for a leaf split over all of them);
+  the weights and CE sums take the whole tier as before;
+* the pod tier and the server optimizer run on the blocks (the int8
+  hop's blocks are the whole leaf's where a shard's last axis is
+  unsplit or a multiple of 256), and the update norm sums its squares
+  over the ranks of each leaf's split axes;
+* a bf16 leaf's gradient summed over the data ranks is rounded to bf16
+  once by the adjoint, where the replicated round sums in fp32.
+
+Without ``in_specs`` every step is the replicated one.  The dry-run
+helpers (:func:`abstract_params`, :func:`input_specs`,
+:func:`abstract_caches`) build meta tensors: shapes and dtypes, no
+allocation.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from itertools import zip_longest
 from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.fl import compression
-from repro_torch.fl.server import apply_server_opt
+from repro_torch.fl.server import apply_server_opt, init_server_state
 from repro_torch.launch.mesh import dp_axes as mesh_dp_axes
 from repro_torch.launch.mesh import pod_axis as mesh_pod_axis
 from repro_torch.models import build_model
 from repro_torch.models.transformer import ModelOptions
+from repro_torch.sharding.rules import (divisibility_fix, param_specs,
+                                        split_over)
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 
@@ -193,9 +224,9 @@ def accumulate_updates(model, params, batch, agg: AggregationConfig):
 # ---------------------------------------------------------------------------
 
 
-def _metrics(delta, wsum, loss, n_updates):
-    """The sidecar's metrics, computed with the aggregation event."""
-    sq = sum(torch.sum(torch.square(l.float())) for l in tree_leaves(delta))
+def _metrics(sq, wsum, loss, n_updates):
+    """The sidecar's metrics, computed with the aggregation event
+    (``sq``: the update's squared norm, :func:`_block_sq`)."""
     return {
         "loss": loss,
         "update_norm": torch.sqrt(sq),
@@ -223,7 +254,7 @@ def train_options(cfg: ArchConfig, mesh, agg: AggregationConfig
 
 
 def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
-                     opts: Optional[ModelOptions] = None):
+                     opts: Optional[ModelOptions] = None, in_specs=None):
     """-> (train_step(params, server_state, batch) -> (params', state',
     metrics), model).  ``mesh`` is the port's logical mesh
     (``launch/mesh.py``): in one process, or over ranks, where every
@@ -232,9 +263,14 @@ def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
     MoE config trains with ``moe_impl="ep"`` by default, its capacity
     taken per microbatch as the JAX package's per-pod body takes it.  A
     batch may carry a frontend config's ``"frontend"`` (B, F, d_model);
-    every key is split by pod and microbatch with the tokens."""
+    every key is split by pod and microbatch with the tokens.
+    ``in_specs``: (param specs, server-state specs), as
+    :func:`train_shardings` gives them, for a mesh over ranks: each rank
+    is called with its blocks of the params and the state and returns
+    its blocks (module docstring); the batch stays whole."""
     pod = mesh_pod_axis(mesh)
-    opts = opts or train_options(cfg, mesh, agg)
+    opts = _hold_blocks(opts or train_options(cfg, mesh, agg), mesh,
+                        in_specs and in_specs[0])
     model = build_model(cfg, opts)
     if mesh.distributed:
         return _rank_step(model, mesh, agg), model
@@ -243,8 +279,8 @@ def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
         delta, wsum, loss = accumulate_updates(model, params, batch, agg)
         new_params, new_state = apply_server_opt(
             agg.server_opt, params, server_state, delta, lr=agg.server_lr)
-        return new_params, new_state, _metrics(delta, wsum, loss,
-                                               agg.num_microbatches)
+        return new_params, new_state, _metrics(
+            _block_sq(delta), wsum, loss, agg.num_microbatches)
 
     if pod is None or agg.hierarchy == "flat":
         return flat_step, model
@@ -270,9 +306,22 @@ def build_train_step(cfg: ArchConfig, mesh, agg: AggregationConfig,
         new_params, new_state = apply_server_opt(
             agg.server_opt, params, server_state, delta, lr=agg.server_lr)
         return new_params, new_state, _metrics(
-            delta, wsum, loss / n_pods, agg.num_microbatches * n_pods)
+            _block_sq(delta), wsum, loss / n_pods,
+            agg.num_microbatches * n_pods)
 
     return hier_step, model
+
+
+def _hold_blocks(opts: ModelOptions, mesh, specs) -> ModelOptions:
+    """``opts`` for a model whose params arrive as this rank's blocks of
+    ``specs``."""
+    if specs is None:
+        return opts
+    if not mesh.distributed:
+        raise ValueError("in_specs name storage across ranks: build the "
+                         "mesh with make_debug_mesh in ranks started by "
+                         "launch.dist.spawn_ranks")
+    return dataclasses.replace(opts, param_specs=specs)
 
 
 def _rank_step(model, mesh, agg: AggregationConfig):
@@ -283,9 +332,18 @@ def _rank_step(model, mesh, agg: AggregationConfig):
     split = mesh.shape.get("data", 1) if hier else \
         mesh.shape.get("data", 1) * mesh.shape.get(pod, 1)
     own = mesh.coord("model") == 0
-    part = _Part(own=own, weighted=model.cfg.moe is not None and split > 1)
-    tier_axes = ("data",) if hier else mesh_dp_axes(mesh)
-    tier = mesh.group(*tier_axes, "model")
+    tier_axes = tuple(a for a in mesh.axis_names if a in (
+        ("data",) if hier else mesh_dp_axes(mesh)) + ("model",))
+    # the axes each leaf is split over (none without sharded storage)
+    splits = [split_over(s, mesh)
+              for s in tree_leaves(model.opts.param_specs or {})]
+    if hier and any(pod in s for s in splits):
+        raise ValueError("a hierarchical round's pod tier averages whole "
+                         "leaves across pods: no leaf may be split over "
+                         f"{pod!r} (fsdp=('data',))")
+    over_batch = any(a in s for s in splits for a in mesh_dp_axes(mesh))
+    part = _Part(own=own, weighted=over_batch or (
+        model.cfg.moe is not None and split > 1))
 
     def rank_step(params, server_state, batch):
         rows = {k: _rank_rows(v, mesh, n, hier) for k, v in batch.items()}
@@ -297,8 +355,16 @@ def _rank_step(model, mesh, agg: AggregationConfig):
         stats = torch.stack([*ws, *(w * l for w, l in zip(ws, losses))])
         if not own:
             stats.zero_()
-        mesh.wire.all_reduce([*acc, stats], tier,
-                             "data_all_reduce" if hier else "all_reduce")
+        # each leaf over the tier's axes its blocks are not split over
+        # (the gathers' adjoints summed the rest); the stats over all
+        buckets = {}
+        for a, s in zip_longest(acc, splits, fillvalue=()):
+            buckets.setdefault(tuple(x for x in tier_axes if x not in s),
+                               []).append(a)
+        buckets.setdefault(tier_axes, []).append(stats)
+        for axes, ts in buckets.items():
+            mesh.wire.all_reduce(ts, mesh.group(*axes),
+                                 "data_all_reduce" if hier else "all_reduce")
         counts, ce = stats[:n], stats[n:]
         wsum = counts.sum()
         loss = (ce / torch.clamp_min(counts, 1.0)).sum() / n
@@ -319,9 +385,26 @@ def _rank_step(model, mesh, agg: AggregationConfig):
             n_updates = n * n_pods
         new_params, new_state = apply_server_opt(
             agg.server_opt, params, server_state, delta, lr=agg.server_lr)
-        return new_params, new_state, _metrics(delta, wsum, loss, n_updates)
+        return new_params, new_state, _metrics(
+            _block_sq(delta, splits, mesh), wsum, loss, n_updates)
 
     return rank_step
+
+
+def _block_sq(delta, splits=(), mesh=None) -> torch.Tensor:
+    """The update's squared norm from this rank's blocks: each leaf's
+    squares summed over the ranks of its split axes (one all-reduce a
+    set of axes; ``splits`` shorter than the leaves: the rest unsplit)."""
+    sums = {}
+    for leaf, s in zip_longest(tree_leaves(delta), splits, fillvalue=()):
+        sums[s] = sums.get(s, 0) + torch.sum(torch.square(leaf.float()))
+    total = 0
+    for s, sq in sums.items():
+        if s:
+            mesh.wire.all_reduce([sq], mesh.group(*s),
+                                 "_".join(s) + "_norm")
+        total = total + sq
+    return total
 
 
 def _rank_rows(x: torch.Tensor, mesh, n: int, hier: bool) -> torch.Tensor:
@@ -392,7 +475,7 @@ def serve_rows(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def build_prefill_step(cfg: ArchConfig, mesh,
-                       opts: Optional[ModelOptions] = None):
+                       opts: Optional[ModelOptions] = None, in_specs=None):
     """-> (prefill_step(params, batch) -> (logits (B_r, 1, V) fp32 of the
     last position, caches), model); ``opts`` default to
     :func:`serve_options`.  ``batch`` is the whole ``{"tokens",
@@ -400,9 +483,11 @@ def build_prefill_step(cfg: ArchConfig, mesh,
     data) rows (:func:`serve_rows`) and returns their logits and decode
     caches.  On a model axis the prefill's attention, SSM scan, experts
     and logits are split over the model group, whose ranks return the
-    same bits; each SSM layer's cache holds the whole gathered state."""
-    opts = opts or serve_options(cfg, mesh, prefill=True)
-    model = build_model(cfg, opts)
+    same bits; each SSM layer's cache holds the whole gathered state.
+    ``in_specs``: :func:`serve_shardings`' param specs, for a mesh over
+    ranks: each rank is called with its blocks of the params."""
+    model = build_model(cfg, _hold_blocks(
+        opts or serve_options(cfg, mesh, prefill=True), mesh, in_specs))
 
     def prefill_step(params, batch):
         return model.prefill(params, {k: serve_rows(v, mesh)
@@ -412,7 +497,7 @@ def build_prefill_step(cfg: ArchConfig, mesh,
 
 
 def build_decode_step(cfg: ArchConfig, mesh,
-                      opts: Optional[ModelOptions] = None):
+                      opts: Optional[ModelOptions] = None, in_specs=None):
     """-> (decode_step(params, tokens, caches, pos) -> (logits (B_r, 1, V)
     fp32, caches written in place), model); ``opts`` default to
     :func:`serve_options`.  ``tokens`` (B_r, 1) are this rank's rows, as
@@ -421,7 +506,74 @@ def build_decode_step(cfg: ArchConfig, mesh,
     experts over the model group at the reference's capacity (drops
     included), and the logits are gathered over the vocab shards
     (``sharded_vocab.decode_logits``): every rank of the group returns
-    the same bits."""
-    model = build_model(cfg, opts or serve_options(cfg, mesh,
-                                                   prefill=False))
+    the same bits.  ``in_specs``: as :func:`build_prefill_step`'s; the
+    caches stay whole over the model axis (the JAX dry run's cache
+    specs split their capacity over it, which the port's decode
+    attention does not)."""
+    model = build_model(cfg, _hold_blocks(
+        opts or serve_options(cfg, mesh, prefill=False), mesh, in_specs))
     return model.decode_step, model
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs + shardings (dry-run contract)
+# ---------------------------------------------------------------------------
+
+
+def abstract_params(model) -> Any:
+    """The param tree on the meta device: shapes and dtypes, no
+    allocation (full-size kimi-k2-1t-a32b in well under a second)."""
+    return model.init(0, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Meta stand-ins for every model input of a cell.
+
+    train:   {"tokens","labels"[,"frontend"]}   (global_batch, seq)
+    prefill: {"tokens"[,"frontend"]}
+    decode:  {"tokens": (B,1), "pos": scalar}  (+ caches built separately)
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    out: Dict[str, Any] = {}
+    if shape.kind == "train":
+        out["tokens"] = meta((B, S))
+        out["labels"] = meta((B, S))
+    elif shape.kind == "prefill":
+        out["tokens"] = meta((B, S))
+    else:  # decode
+        out["tokens"] = meta((B, 1))
+        out["pos"] = meta(())
+    if cfg.frontend and shape.kind in ("train", "prefill"):
+        out["frontend"] = meta((B, cfg.frontend_tokens, cfg.d_model),
+                               getattr(torch, cfg.dtype))
+    return out
+
+
+def abstract_caches(model, shape: ShapeConfig):
+    """The decode caches of a cell on the meta device."""
+    return model.init_decode(shape.global_batch, shape.seq_len,
+                             device="meta")
+
+
+def train_shardings(model, mesh, agg: AggregationConfig, fsdp=None):
+    """-> (param specs, server-state specs) of a train step: TP over
+    ``model`` and FSDP over ``fsdp`` (default: the batch axes of a flat
+    round, ``("data",)`` of a hierarchical one), each dim that does not
+    divide left unsplit."""
+    dp = mesh_dp_axes(mesh)
+    if fsdp is None:
+        fsdp = dp if agg.hierarchy == "flat" else ("data",)
+    aparams = abstract_params(model)
+    pspecs = divisibility_fix(param_specs(aparams, fsdp=fsdp), aparams, mesh)
+    state = init_server_state(agg.server_opt, aparams)
+    sspecs = divisibility_fix(param_specs(state, fsdp=fsdp), state, mesh)
+    return pspecs, sspecs
+
+
+def serve_shardings(model, mesh, fsdp=("data",)):
+    aparams = abstract_params(model)
+    return divisibility_fix(param_specs(aparams, fsdp=fsdp), aparams, mesh)

@@ -303,20 +303,33 @@ def _sum(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     return y
 
 
+def group_place(mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """-> (the ranks of the group of ``axes``, this rank's place among
+    them): row-major over the axes in the mesh's order, the order of
+    the group's ranks."""
+    n, at = 1, 0
+    for a in mesh.axis_names:
+        if a in axes:
+            n, at = n * mesh.shape[a], at * mesh.shape[a] + mesh.coord(a)
+    return n, at
+
+
 class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.meta = (mesh, axis, dim)
-        parts = mesh.wire.all_gather(x, mesh.group(axis),
-                                     f"{axis}_all_gather")
+        axes = _axes(axis)
+        parts = mesh.wire.all_gather(x, mesh.group(*axes),
+                                     "_".join(axes) + "_all_gather")
         return torch.cat(parts.unbind(0), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         mesh, axis, dim = ctx.meta
-        n = g.shape[dim] // mesh.shape[axis]
-        mine = _sum(g, mesh, axis).narrow(dim, mesh.coord(axis) * n, n)
+        n, at = group_place(mesh, _axes(axis))
+        k = g.shape[dim] // n
+        mine = _sum(g, mesh, axis).narrow(dim, at * k, k)
         return mine.to(g.dtype), None, None, None
 
 
@@ -356,9 +369,14 @@ def _shifted(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
     return out
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    """Every rank's ``x`` of ``axis``'s group, concatenated along ``dim``
-    in the group's order (``jax.lax.all_gather(tiled=True)``)."""
+def all_gather(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of the group of ``axis`` (a name, or a tuple of
+    names in the mesh's order), concatenated along ``dim`` in the
+    group's order, row-major over the axes
+    (``jax.lax.all_gather(tiled=True)``).  The adjoint casts the fp32
+    sum of the cotangent back to its dtype, so a 16-bit leaf gathered
+    over the batch axes takes its gradient summed over them, rounded
+    once (``sharding/rules.py``)."""
     return _AllGather.apply(x, mesh, axis, dim)
 
 

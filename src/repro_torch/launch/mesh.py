@@ -1,6 +1,9 @@
 """A logical mesh of named axes: the JAX package's ``launch/mesh.py``
-(``make_debug_mesh``, ``make_host_mesh``, ``mesh_axes``, ``dp_axes``,
-``pod_axis``) without the devices.
+(``make_production_mesh``, ``make_debug_mesh``, ``make_host_mesh``,
+``mesh_axes``, ``dp_axes``, ``pod_axis``) without the devices.
+``make_production_mesh`` and :func:`stand_in_mesh` give one rank's view
+of a mesh whose ranks are not started (the dry run's,
+``launch/dryrun.py``).
 
 Mesh axes, as in the JAX package:
   pod   — LIFL's inter-node tier (the top aggregator level)
@@ -115,21 +118,22 @@ def rank_of(sizes, coords) -> int:
     return r
 
 
-def _rank_mesh(axes: Tuple[str, ...], sizes: Tuple[int, ...],
-               rank: int) -> Mesh:
-    """This rank's coordinate and one process group for each set of axes
-    (an axis alone, the batch axes together, the data and model axes
-    together, ...).  Every rank creates every group, in the same order,
-    as ``torch.distributed.new_group`` requires."""
+def _coords(sizes: Tuple[int, ...], rank: int) -> Tuple[int, ...]:
+    """Row-major coordinates of ``rank`` in a mesh of ``sizes``."""
     coords = []
-    r = rank
     for s in reversed(sizes):
-        coords.append(r % s)
-        r //= s
-    coords = tuple(reversed(coords))
+        coords.append(rank % s)
+        rank //= s
+    return tuple(reversed(coords))
+
+
+def _groups(axes: Tuple[str, ...], sizes: Tuple[int, ...]):
+    """Every process group of a mesh, in one order: ``(span, members)``
+    for each set of axes (an axis alone, the batch axes together, the
+    data and model axes together, ...) of more than one rank and each
+    coordinate off it; members by global rank."""
     spans = [span for n in range(1, len(axes) + 1)
              for span in itertools.combinations(axes, n)]
-    groups = {}
     for span in spans:
         along = [i for i, a in enumerate(axes) if a in span]
         if prod(sizes[i] for i in along) == 1:
@@ -144,10 +148,49 @@ def _rank_mesh(axes: Tuple[str, ...], sizes: Tuple[int, ...],
                 for i, v in zip(along, moving):
                     c[i] = v
                 members.append(rank_of(sizes, c))
-            g = dist.new_group(members)
-            if rank in members:
-                groups[span] = g
-    return Mesh(axes, sizes, coords, groups, Wire())
+            yield span, members
+
+
+def _rank_mesh(axes: Tuple[str, ...], sizes: Tuple[int, ...],
+               rank: int) -> Mesh:
+    """This rank's coordinate and one process group for each set of axes.
+    Every rank creates every group, in the same order, as
+    ``torch.distributed.new_group`` requires."""
+    groups = {}
+    for span, members in _groups(axes, sizes):
+        g = dist.new_group(members)
+        if rank in members:
+            groups[span] = g
+    return Mesh(axes, sizes, _coords(sizes, rank), groups, Wire())
+
+
+def stand_in_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+                  rank: int = 0) -> Mesh:
+    """``rank``'s place in a mesh of ``shape`` whose ranks are not started:
+    its coordinates, a stand-in for each of its process groups
+    (``analysis/collectives.py::StandInGroup``, the members a real
+    group would hold, None where a real mesh's group is None) and a
+    recording wire that counts each collective and moves nothing.  A
+    step built on it runs one rank's work (under fake tensors: the dry
+    run, ``launch/dryrun.py``)."""
+    from repro_torch.analysis.collectives import RecordingWire, StandInGroup
+
+    axes, sizes = tuple(axes), tuple(int(s) for s in shape)
+    if not 0 <= rank < prod(sizes):
+        raise ValueError(f"rank {rank} of a mesh of {prod(sizes)} ranks")
+    groups = {span: StandInGroup(span, tuple(members))
+              for span, members in _groups(axes, sizes)
+              if rank in members}
+    return Mesh(axes, sizes, _coords(sizes, rank), groups, RecordingWire())
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """The JAX package's production meshes, (16, 16) over (data, model) or
+    (2, 16, 16) over (pod, data, model), as ``rank`` of them sees them
+    (:func:`stand_in_mesh`): what the dry run traces."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return stand_in_mesh(shape, axes, rank)
 
 
 def make_debug_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:

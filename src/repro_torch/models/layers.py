@@ -23,7 +23,8 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
     fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if not w.is_meta:           # a meta tensor (abstract params) holds none
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * std).to(dtype)
 
 

@@ -51,6 +51,7 @@ Shared experts (DeepSeek / Kimi) are dense FFNs applied to every token.
 """
 from __future__ import annotations
 
+from math import prod
 from typing import Optional, Tuple
 
 import torch
@@ -123,12 +124,14 @@ def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
     ranks of ``mesh`` that differ on ``dp_axes`` (this rank's alone in
     one process or where they are one rank)."""
     T = probs.shape[0]
-    counts = torch.bincount(idx.reshape(-1), minlength=num_experts).float()
+    # a fixed-shape count (bincount's shape depends on the values)
+    counts = torch.zeros(num_experts, device=idx.device).scatter_add_(
+        0, idx.reshape(-1), torch.ones(idx.numel(), device=idx.device))
     group = mesh.group(*dp_axes) if mesh is not None and dp_axes else None
     if group is None:
         f = counts / max(T * idx.shape[-1], 1)
         return num_experts * torch.sum(f * probs.mean(dim=0))
-    T = T * torch.distributed.get_world_size(group)
+    T = T * prod(mesh.shape[a] for a in dp_axes)
     counts = dist.psum(counts, mesh, dp_axes)
     p = dist.psum(probs.sum(dim=0), mesh, dp_axes) / T
     return num_experts * torch.sum(counts / max(T * idx.shape[-1], 1) * p)

@@ -38,6 +38,7 @@ vocab and the experts are sharded as for the dense and MoE families.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -52,6 +53,7 @@ from repro_torch.models.sharded_vocab import (chunked_lm_loss_sharded,
                                               decode_logits, embed_lookup,
                                               padded_vocab)
 from repro_torch.models.transformer import ModelOptions
+from repro_torch.sharding.rules import gather_tree, layer_specs
 
 MOE_AUX_WEIGHT = 0.01
 
@@ -68,7 +70,11 @@ class LM:
     def init(self, seed: int, device: Any = None) -> Dict[str, Any]:
         """Random params from ``seed``, drawn on ``device`` (None: the card)."""
         cfg = self.cfg
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        dev = resolve_device(device)
+        # on the meta device nothing is drawn (``fl/round.py::
+        # abstract_params``): a meta tensor holds no values
+        gen = _MetaDraws() if dev.type == "meta" else \
+            torch.Generator(device=dev).manual_seed(seed)
         vp = padded_vocab(cfg.vocab_size)
         params: Dict[str, Any] = {
             "embed": init_embedding(gen, vp, cfg.d_model, self.dtype),
@@ -90,6 +96,38 @@ class LM:
         return params
 
     # ------------------------------------------------------------------
+    def _whole(self, params):
+        """With ``param_specs``, the leaves used outside the layer loops
+        (embedding, head, final norms, frontend projection) gathered
+        whole; the layers' leaves are gathered a layer at a time inside
+        the loops (``_layer_gathers``)."""
+        specs, mesh = self.opts.param_specs, self.opts.mesh
+        if specs is None:
+            return params
+        out = {}
+        for k, v in params.items():
+            if k == "segments":
+                out[k] = v
+            elif k == "encoder":
+                out[k] = {"segments": v["segments"],
+                          "final_norm": gather_tree(
+                              v["final_norm"], specs[k]["final_norm"], mesh)}
+            else:
+                out[k] = gather_tree(v, specs[k], mesh)
+        return out
+
+    def _layer_gathers(self, *path):
+        """One function a segment of the stack at ``path`` that gathers a
+        layer's blocks whole (None without ``param_specs``)."""
+        specs = self.opts.param_specs
+        if specs is None:
+            return None
+        for k in path:
+            specs = specs[k]
+        mesh = self.opts.mesh
+        return [functools.partial(gather_tree, specs=layer_specs(s),
+                                  mesh=mesh) for s in specs]
+
     def _unembed_w(self, params):
         if self.cfg.tie_embeddings:
             return params["embed"], True
@@ -119,8 +157,10 @@ class LM:
         """The encoder over the stub's frame embeddings -> memory (B,F,D)."""
         x = self._project_frontend(params, frontend)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _, _ = tfm.apply_stack(self.cfg, params["encoder"]["segments"],
-                                  self.enc_specs, self.opts, x, positions)
+        x, _, _ = tfm.apply_stack(
+            self.cfg, params["encoder"]["segments"], self.enc_specs,
+            self.opts, x, positions,
+            gather=self._layer_gathers("encoder", "segments"))
         return rmsnorm(params["encoder"]["final_norm"], x, self.cfg.norm_eps)
 
     def _embed_inputs(self, params, tokens, frontend):
@@ -161,6 +201,7 @@ class LM:
         x, aux, caches = tfm.apply_stack(
             self.cfg, params["segments"], self.specs, self.opts,
             x, positions, memory=memory, collect_cache=collect_cache,
+            gather=self._layer_gathers("segments"),
         )
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return x, aux, caches, n_front
@@ -168,6 +209,7 @@ class LM:
     # ------------------------------------------------------------------
     def loss(self, params, batch) -> Tuple[torch.Tensor,
                                            Dict[str, torch.Tensor]]:
+        params = self._whole(params)
         hidden, aux, _, n_front = self._forward(
             params, batch["tokens"], batch.get("frontend"))
         if n_front:
@@ -187,6 +229,7 @@ class LM:
         """-> (logits (B,1,V) fp32 of the last position, caches).  A
         decoder-only frontend's patches take positions 0 .. F - 1, so the
         first decode step is at ``pos = F + S``."""
+        params = self._whole(params)
         hidden, _, caches, _ = self._forward(
             params, batch["tokens"], batch.get("frontend"),
             collect_cache=True)
@@ -208,10 +251,11 @@ class LM:
 
     def decode_step(self, params, tokens, caches, pos):
         """tokens (B,1) -> (logits (B,1,V) fp32, caches written in place)."""
+        params = self._whole(params)
         x = self._embed(params, tokens)
         x, new_caches = tfm.decode_stack(
             self.cfg, params["segments"], self.specs, self.opts, x, caches,
-            pos)
+            pos, gather=self._layer_gathers("segments"))
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         w, tied = self._unembed_w(params)
         logits = decode_logits(
@@ -219,6 +263,13 @@ class LM:
             model_axis=self.opts.vocab_axis, mesh=self.opts.mesh,
         )
         return logits, new_caches
+
+
+class _MetaDraws:
+    """``LM.init``'s generator on the meta device, where nothing is
+    drawn (``layers.dense_init``)."""
+
+    device = torch.device("meta")
 
 
 def build_model(cfg: ArchConfig, opts: Optional[ModelOptions] = None) -> LM:

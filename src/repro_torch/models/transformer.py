@@ -80,6 +80,9 @@ class ModelOptions:
     decode_capacity_factor: float = 4.0
     # ring-cache capacity built by prefill; 0 -> prefill length
     prefill_cache_capacity: int = 0
+    # the params' specs when each rank holds only its blocks (port only:
+    # set by ``fl/round.py``'s builders from their ``in_specs``)
+    param_specs: Any = None
 
 
 def layer_specs(cfg: ArchConfig, *, decoder: bool = True) -> List[LayerSpec]:
@@ -362,17 +365,24 @@ def apply_stack(cfg: ArchConfig, seg_params: List[Any],
                 specs: List[LayerSpec], opts: ModelOptions, x: torch.Tensor,
                 positions: torch.Tensor,
                 memory: Optional[torch.Tensor] = None,
-                collect_cache: bool = False):
+                collect_cache: bool = False, gather=None):
     """-> (x, aux (the MoE layers' load-balance losses summed; 0 without
     MoE), caches_per_segment | None).  ``memory``: the encoder's output,
-    for the cross-attention layers of an encoder–decoder."""
+    for the cross-attention layers of an encoder–decoder; ``gather``:
+    one function a segment that makes a layer's leaves whole from this
+    rank's blocks (``sharding/rules.py``), run inside the layer's
+    checkpoint, so remat gathers again in the backward."""
     from torch.utils.checkpoint import checkpoint
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = [] if collect_cache else None
-    for sp, (count, spec) in zip(seg_params, segment_specs(specs)):
+    gathers = gather or [None] * len(seg_params)
+    for sp, (count, spec), whole in zip(seg_params, segment_specs(specs),
+                                        gathers):
 
-        def body(layer_params, xx, route=None, spec=spec):
+        def body(layer_params, xx, route=None, spec=spec, whole=whole):
+            if whole is not None:
+                layer_params = whole(layer_params)
             return _apply_block(cfg, spec, opts, layer_params, xx, positions,
                                 memory, collect_cache, route)
 
@@ -396,13 +406,18 @@ def apply_stack(cfg: ArchConfig, seg_params: List[Any],
 
 def decode_stack(cfg: ArchConfig, seg_params: List[Any],
                  specs: List[LayerSpec], opts: ModelOptions,
-                 x: torch.Tensor, caches: List[Any], pos: int):
-    """-> (x, caches): every segment's cache is written in place."""
-    for sp, cache, (count, spec) in zip(seg_params, caches,
-                                        segment_specs(specs)):
+                 x: torch.Tensor, caches: List[Any], pos: int, gather=None):
+    """-> (x, caches): every segment's cache is written in place.
+    ``gather``: as :func:`apply_stack`'s."""
+    gathers = gather or [None] * len(seg_params)
+    for sp, cache, (count, spec), whole in zip(
+            seg_params, caches, segment_specs(specs), gathers):
         for i in range(count):
-            x = _decode_block(cfg, spec, opts, _layer(sp, i), x,
-                              _layer(cache, i), pos)
+            layer = _layer(sp, i)
+            if whole is not None:
+                layer = whole(layer)
+            x = _decode_block(cfg, spec, opts, layer, x, _layer(cache, i),
+                              pos)
     return x, caches
 
 

@@ -1002,3 +1002,45 @@ def _last_axis_blocks(x):
     last axis, zero-padded."""
     pad = -x.shape[-1] % 256
     return torch.nn.functional.pad(x, (0, pad)).reshape(-1, 256)
+
+
+@pytest.mark.gpu
+def test_two_rank_sharded_int8_round_on_the_card(card):
+    """Two gloo ranks on the card on a (1,2,1) mesh, reduced fp32
+    llama3.2-3b from seed-0 params, each rank holding only its blocks of
+    ``train_shardings``' specs: the uncompressed round within 1e-6 of the
+    largest element of the replicated round on the same ranks; the int8
+    round within Σ_p (s_p + s'_p) / 2P of it (whole-leaf and shard block
+    scales, ``_torch_fsdp_ranks.int8_limits``); the leaves that neither
+    rank splits bit-identical on both; quantize and dequantize once a
+    leaf on each rank, on the card."""
+    import numpy as np
+
+    import _torch_fsdp_ranks as ranks
+    from repro_torch.launch.dist import spawn_ranks
+
+    plan = [(comp, "train", dict(arch="llama3.2-3b", shape=(1, 2, 1),
+                                 hierarchy="hierarchical", compress=comp))
+            for comp in ("none", "int8")]
+    out = spawn_ranks(ranks.run_plan, 2, plan, timeout_s=300)
+    for comp in ("none", "int8"):
+        rows = [r[comp] for r in out]
+        got, want = rows[0]["whole"], rows[0]["rep"]
+        if comp == "none":
+            scale = max(float(np.abs(w).max()) for w in want)
+            assert max(float(np.abs(g - w).max())
+                       for g, w in zip(got, want)) <= 1e-6 * scale
+        else:
+            _, bounds = ranks.int8_limits(rows)
+            for g, w, b in zip(got, want, bounds):
+                assert np.all(np.abs(g.astype(np.float64) - w)
+                              <= b + 1e-5)
+            leaves = len(got)
+            for r in rows:
+                assert r["launches"] == {"quantize": leaves,
+                                         "dequantize": leaves}
+        whole = [i for i, (g, b) in enumerate(
+            zip(got, rows[0]["block_shapes"])) if g.shape == tuple(b)]
+        assert all(rows[0]["digests"][i] == rows[1]["digests"][i]
+                   for i in whole)
+        assert rows[0]["wire"]["data_all_gather"]["calls"] > 0

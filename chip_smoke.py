@@ -9,9 +9,10 @@ on any fault; it imports nothing of the JAX package.  Phases:
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; TF32 is switched off for convolutions and matmuls, and
    so is the reduced-precision reduction of bf16 matmuls.
-2. build: compiles ``csrc/fedavg.cu``, the three flash sources
+2. build: compiles ``csrc/fedavg.cu``, the four flash sources
    (``csrc/flash_attention_sm90.cu``, ``csrc/flash_attention_tf32x3.cu``,
-   ``csrc/flash_attention.cu``) and ``csrc/quantize.cu`` with ``nvcc``,
+   ``csrc/flash_attention_mma.cu``, ``csrc/flash_attention.cu``) and
+   ``csrc/quantize.cu`` with ``nvcc``,
    one process each, at once, into ``build/repro_torch/`` and times it;
    measures the card's device-to-device copy bandwidth, the practical
    ceiling of a fold.
@@ -33,27 +34,32 @@ on any fault; it imports nothing of the JAX package.  Phases:
    plain versions) must give the same params within ``PARITY_ATOL``,
    and a run with one update planted twice must not.
 6. flash: the flash-attention kernels against their plain version
-   (``attention_ref``): ``flash_variant`` sends 16-bit inputs to the
-   wgmma kernel, fp32 to the 3xTF32 one and what neither takes to the
-   CUDA-core one, and each call must move that kernel's count.  At the
-   serve path's shape (B = 4, S = 2000, 24 query heads over 8 KV heads,
-   D = 128) in bf16, fp16 and fp32; at gemma3's (K 4, G 2, D 256,
-   window 1024), h2o-danube-3-4b's (K 8, G 4, D 120, window 4096) and
-   hymba-1.5b's (K 5, G 5, D 64, window 1024 and global) in bf16, and
-   h2o-danube-3-4b's again on pointers off 16 bytes (the CUDA-core
-   kernel's inputs); at the four shapes of the JAX
-   package's kernel test in all three; and without a causal mask at
+   (``attention_ref``): ``flash_variant`` sends 16-bit inputs that TMA
+   takes to the wgmma kernel, every other 16-bit input to the mma.sync
+   one and every fp32 input to the 3xTF32 one, and each call must move
+   that kernel's count.  At the serve path's shape (B = 4, S = 2000, 24
+   query heads over 8 KV heads, D = 128) in bf16, fp16 and fp32, and
+   again off 16 bytes in fp16 (mma.sync) and fp32 (the 3xTF32 kernel's
+   4-byte copies); at gemma3's (K 4, G 2, D 256, window 1024),
+   h2o-danube-3-4b's (K 8, G 4, D 120, window 4096) and hymba-1.5b's (K
+   5, G 5, D 64, window 1024 and global) in bf16, and h2o-danube-3-4b's
+   again on pointers off 16 bytes (mma.sync); at the four shapes of the
+   JAX package's kernel test in all three, and at an odd head dim (1,
+   300, 2, 3, 15) in all three; and without a causal mask at
    seamless-m4t-large-v2's encoder shape (B 4, S 512, 16 heads, D 64)
-   in bf16 (wgmma), fp32 (3xTF32) and bf16 off 16 bytes (CUDA cores),
+   in bf16 (wgmma), fp32 (3xTF32) and bf16 off 16 bytes (mma.sync),
    where the plain version run causal must land outside the tolerance
    that the kernel meets.  One ``flash_case`` JSON line
    each, with the library call (``scaled_dot_product_attention``) as the
    yardstick, the bound at the bf16 peak or, in fp32, at three TF32
-   products (``bound_simt_ms``: fp32 FMA on the CUDA cores) and, for the
-   tensor-core kernels, the CUDA-core kernel on the same inputs timed in
-   turns (``previous_ms``).  At the path shape in fp32 the plain version
-   once more with TF32 matmuls (one TF32 pass) must land outside the
-   tolerance that the kernel meets.
+   products (``bound_simt_ms``: fp32 FMA on the CUDA cores) and the
+   first design, the CUDA-core kernel named on the same inputs, timed
+   in turns (``previous_ms``) and held against the plain version too.
+   At the path shape in fp32, aligned and not, the plain version once
+   more with TF32 matmuls (one TF32 pass) must land outside the
+   tolerance that the kernel meets; on the mma.sync kernel's views off
+   16 bytes, the plain version on the views moved back one element
+   must too.
 7. serve: full-width llama3.2-3b (random bf16 weights from seed 0)
    through ``repro_torch.models``: prefill of 4 prompts of 2000 tokens
    with ``attn_impl="pallas"``, then 32 greedy decode steps on the ring
@@ -66,7 +72,10 @@ on any fault; it imports nothing of the JAX package.  Phases:
    decode step under ``torch.profiler`` split the device time into the
    attention kernel, matmuls and the rest, and give the device's idle
    share; a decode step is set beside the time to read every weight
-   once at the measured copy rate.
+   once at the measured copy rate.  Then one more warm prefill with the
+   mma.sync kernel named in the wgmma kernel's place (``flash_calls``,
+   ``variant="mma"``): 28 launches of it and none of the others, timed,
+   its logits within ``MMA_PREFILL_TOL`` of the wgmma prefill's.
 7b. fp32 prefill: the same llama3.2-3b in fp32 (12.8 GB of random
    weights from seed 0, once phase 7's bf16 model is freed), the same
    4 prompts of 2000 tokens with ``attn_impl="pallas"``.  The flash
@@ -89,9 +98,11 @@ on any fault; it imports nothing of the JAX package.  Phases:
    rows at the main path's shapes, the burst timed again at the lazy
    round's K, the wgmma flash row on the serve path's captured
    first-layer inputs, the 3xTF32 flash row at the serve shape in fp32
-   with its launches by path (phases 7, 7b, 8, 11), the CUDA-core flash
+   with its launches by path (phases 7, 7b, 8, 11), the mma.sync flash
    row on the 16-bit inputs TMA cannot take (phase 6's h2o-danube-3-4b
-   shape off 16 bytes) with its launches in phase 7b, and phase 10's
+   shape off 16 bytes, the CUDA-core kernel's time beside it as
+   ``previous_ms``, and seamless's encoder off 16 bytes) with its
+   launches in phase 7's named prefill, and phase 10's
    quantize rows at the fused round's largest leaf), the device line,
    and the last line
    ``{"ok": true, "device": {...}}``.
@@ -454,7 +465,8 @@ from repro_torch.kernels.fedavg import fedavg as fed  # noqa: E402
 from repro_torch.kernels.fedavg import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    BY_VARIANT as FA_BY_VARIANT, FLASH_SIMT, FLASH_TF32X3, FLASH_WGMMA,
+    BY_VARIANT as FA_BY_VARIANT, FLASH_MMA, FLASH_SIMT, FLASH_TF32X3,
+    FLASH_WGMMA,
     GLOBAL, KERNELS as FA_KERNELS, LIBS as FA_LIBS, flash_attention_fwd_cuda,
     flash_variant)
 from repro_torch.kernels.quantize import ops as q_ops  # noqa: E402
@@ -503,6 +515,10 @@ FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2,
              torch.float16: 2e-2}
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "llama3.2-3b", 4, 2000, 32
 LM_PARITY_ATOL = 2e-3        # card vs CPU logits, phase 8
+#: the mma.sync prefill against the wgmma one (phase 7), last-position
+#: bf16 logits, |diff| <= tol (1 + max |logits|): the bf16 logit
+#: tolerance of tests/test_torch_lm.py, as phase 18's dense vs ep
+MMA_PREFILL_TOL = 6e-2
 FUSED_SEQ = 512              # tokens a sequence in the fused round, phase 11
 
 
@@ -904,11 +920,14 @@ def flash_row(label, q, k, v, window, planted=False, causal=True,
               previous=True):
     """The flash kernel that ``flash_variant`` picks for (q, k, v) against
     its plain version, timed beside the library's attention on the same
-    inputs and, for the tensor-core kernels with ``previous``, beside the
-    CUDA-core kernel (``previous_ms``).  ``planted``: the plain version
-    once more with TF32 matmuls (one TF32 pass) must land outside the
-    tolerance.  A non-causal row (``causal=False``) holds its planted
-    fault always: the plain version run causal must land outside it."""
+    inputs and, with ``previous``, beside the first design, the CUDA-core
+    kernel named (``previous_ms``), whose output is held against the
+    plain version too.  ``planted``: the plain version once more with
+    TF32 matmuls (one TF32 pass) must land outside the tolerance.  A
+    non-causal row (``causal=False``) holds its planted fault always: the
+    plain version run causal must land outside it; so does a row of the
+    mma.sync kernel on views into their buffers: the plain version on the
+    views moved back one element must land outside it."""
     B, S, K, G, D = q.shape
     Dv = v.shape[-1]
     H = K * G
@@ -946,6 +965,18 @@ def flash_row(label, q, k, v, window, planted=False, causal=True,
             raise AssertionError(f"flash[{label}]: one TF32 pass lands "
                                  f"inside rtol=atol={tol}: {one_pass}")
         del one
+    moved_back = None
+    if kern is FLASH_MMA and min(t.storage_offset() for t in (q, k, v)):
+        back = [t.as_strided(t.shape, t.stride(), t.storage_offset() - 1)
+                for t in (q, k, v)]
+        wrong = fa_ops.flash_attention(*back, impl="torch", **kw).float()
+        moved_back = {"max_abs_err": errors(got.float(), wrong)[0],
+                      "limit_share": limit_share(got.float(), wrong, tol)}
+        if not moved_back["limit_share"] > 1.0:
+            raise AssertionError(f"flash[{label}]: the kernel lands inside "
+                                 f"rtol=atol={tol} of the views moved back "
+                                 f"one element: {moved_back}")
+        del back, wrong
     causal_plain = None
     if not causal:
         wrong = fa_ops.flash_attention(q, k, v, impl="torch",
@@ -982,10 +1013,17 @@ def flash_row(label, q, k, v, window, planted=False, causal=True,
         b_ops = flops / BF16_FLOPS
     reps = 25 if S <= 256 else 10
     # the two designs in turns (tensor cores, CUDA cores, CUDA cores,
-    # tensor cores)
+    # tensor cores), the first held against the plain version as well
     ms = time_ms(run, reps=reps)
-    prev_ms = None
-    if previous and kern is not FLASH_SIMT:
+    prev_ms = prev_err = None
+    if previous:
+        first = simt().float()
+        torch.cuda.synchronize()
+        want = plain().float()
+        check_close(f"flash[{label}], CUDA cores", first, want, tol)
+        prev_err = {"max_abs_err": errors(first, want)[0],
+                    "limit_share": limit_share(first, want, tol)}
+        del first, want
         prev_ms = min(time_ms(simt, reps=reps), time_ms(simt, reps=reps))
     row = {
         "case": label, "dtype": str(q.dtype).replace("torch.", ""),
@@ -995,7 +1033,7 @@ def flash_row(label, q, k, v, window, planted=False, causal=True,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "limit_share": share,
         "ms": min(ms, time_ms(run, reps=reps)), "previous_ms": prev_ms,
-        "plain_ms": time_ms(plain, reps=reps),
+        "previous_err": prev_err, "plain_ms": time_ms(plain, reps=reps),
         "library_ms": time_ms(library, reps=reps),
         "bytes": nbytes, "flops": flops,
         "bound_ms": max(b_bytes, b_ops) * 1e3,
@@ -1007,6 +1045,8 @@ def flash_row(label, q, k, v, window, planted=False, causal=True,
         row["one_tf32_pass"] = one_pass
     if causal_plain is not None:
         row["causal_plain_vs_kernel"] = causal_plain
+    if moved_back is not None:
+        row["moved_back_plain_vs_kernel"] = moved_back
     return row
 
 
@@ -1030,6 +1070,11 @@ def phase_flash():
              ("gemma3", 4, 2000, 4, 2, 256, 1024, bf16, 0),
              ("h2o_danube3", 4, 2000, 8, 4, 120, 4096, bf16, 0),
              ("h2o_danube3_unaligned", 4, 2000, 8, 4, 120, 4096, bf16, 1),
+             # the serve path off 16 bytes: mma.sync in fp16, the 3xTF32
+             # kernel's 4-byte copies in fp32; and an odd head dim
+             ("path_unaligned", 4, 2000, 8, 3, 128, GLOBAL,
+              (torch.float16, torch.float32), 1),
+             ("odd_dim", 1, 300, 2, 3, 15, GLOBAL, every, 0),
              ("hymba", 4, 2000, 5, 5, 64, 1024, bf16, 0),
              ("hymba_global", 4, 2000, 5, 5, 64, GLOBAL, bf16, 0),
              ("test0", 1, 128, 1, 1, 32, GLOBAL, every, 0),
@@ -1048,7 +1093,8 @@ def phase_flash():
             mk = lambda *shape: randn_on_card(shape, dtype, g, off)
             row = flash_row(label, mk(B, S, K, G, D), mk(B, S, K, D),
                             mk(B, S, K, D), window,
-                            planted=(label, dtype) == ("path", torch.float32),
+                            planted=(dtype == torch.float32
+                                     and label in ("path", "path_unaligned")),
                             causal=causal[0] if causal else True)
             log("flash_case " + json.dumps(row))
             rows[label, row["dtype"]] = row
@@ -1181,8 +1227,11 @@ def phase_serve(copy_bps):
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite logits")
     lat_ms = sorted(x * 1e3 for x in lat)
-    warm_s = min(serve(model, params, prompts, 0, torch.device("cuda"))[2]
-                 for _ in range(2))
+    warm = [serve(model, params, prompts, 0, torch.device("cuda"))
+            for _ in range(2)]
+    warm_s = min(w[2] for w in warm)
+    mma = phase_serve_mma(model, params, prompts, warm[-1][0])
+    del warm
     row = {
         "arch": LM_ARCH, "params": n_params, "dtype": cfg.dtype,
         "batch": LM_BATCH, "prompt": LM_PROMPT, "steps": LM_STEPS,
@@ -1194,7 +1243,7 @@ def phase_serve(copy_bps):
         "decode_p99_ms": float(np.percentile(lat_ms, 99)),
         "decode_tok_s": LM_BATCH * LM_STEPS / sum(lat),
         "peak_mem_gb": peak / 1e9, "flash_launches": launches,
-        "tokens_0": toks[0, :8].tolist()}
+        "tokens_0": toks[0, :8].tolist(), **mma}
     log("serve " + json.dumps(row))
     log("serve_prefill_device " + json.dumps(device_time_split(
         lambda: model.prefill(params, {"tokens": prompts}))))
@@ -1211,6 +1260,43 @@ def phase_serve(copy_bps):
     del params, logits, caches
     torch.cuda.empty_cache()
     return row, launches[FLASH_WGMMA.name], rows[0]
+
+
+def phase_serve_mma(model, params, prompts, wgmma_logits):
+    """One more warm bf16 prefill of phase 7 with the mma.sync kernel
+    named in the wgmma kernel's place: 28 launches of it and none of the
+    others, timed, its last-position logits within ``MMA_PREFILL_TOL``
+    of the wgmma prefill's (``wgmma_logits``)."""
+    def named(i, orig, q, k, v, *args, **kw):
+        return flash_attention_fwd_cuda(
+            q, k, v, scale=kw["scale"], window=kw["window"],
+            causal=kw["causal"], variant="mma")
+
+    with flash_calls(named):
+        for kern in FA_KERNELS:
+            kern.launches = 0
+        logits, _, prefill_s, _, _ = serve(model, params, prompts, 0,
+                                           torch.device("cuda"))
+        launches = {kern.name: kern.launches for kern in FA_KERNELS}
+    n_layers = model.cfg.num_layers
+    want = {kern.name: n_layers * int(kern is FLASH_MMA)
+            for kern in FA_KERNELS}
+    if launches != want:
+        raise AssertionError(f"the bf16 prefill with the mma.sync kernel "
+                             f"named launched {launches}, not {want}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits with the mma.sync kernel")
+    diff = float((logits.float() - wgmma_logits.float()).abs().max())
+    scale = float(wgmma_logits.float().abs().max())
+    out = {"prefill_mma_ms": prefill_s * 1e3, "launches_mma": launches,
+           "mma_vs_wgmma_logits_max_abs": diff,
+           "wgmma_logits_max_abs": scale,
+           "mma_same_greedy_tokens": bool(torch.equal(
+               logits[:, -1].argmax(-1), wgmma_logits[:, -1].argmax(-1)))}
+    if not diff <= MMA_PREFILL_TOL * (1 + scale):
+        raise AssertionError(f"mma.sync vs wgmma prefill logits: {diff:.3e}"
+                             f" > {MMA_PREFILL_TOL} (1 + {scale:.3e})")
+    return out
 
 
 def phase_fp32_prefill():
@@ -1322,12 +1408,12 @@ def phase_lm_checks():
     card_logits, card_toks, *_ = serve(model, p_card, prompts.to(cuda),
                                        steps, cuda)
     tf32_launches = FLASH_TF32X3.launches
-    if (tf32_launches != model.cfg.num_layers or FLASH_WGMMA.launches
-            or FLASH_SIMT.launches):
-        raise AssertionError(f"the fp32 serve loop launched the 3xTF32 "
-                             f"flash kernel {tf32_launches} times, the "
-                             f"wgmma one {FLASH_WGMMA.launches} and the "
-                             f"CUDA-core one {FLASH_SIMT.launches}")
+    if (tf32_launches != model.cfg.num_layers
+            or sum(kern.launches for kern in FA_KERNELS) != tf32_launches):
+        raise AssertionError(
+            f"the fp32 serve loop launched "
+            f"{ {kern.name: kern.launches for kern in FA_KERNELS} }, not "
+            f"{model.cfg.num_layers} of the 3xTF32 flash kernel alone")
 
     def roll_first(i, orig, q, k, v, *args, **kw):
         if i == 0:      # the KV heads of the first layer, one head off
@@ -5264,6 +5350,8 @@ def main() -> int:
         """A flash kernel's launches on each path that runs attention."""
         return {"phase 7: bf16 prefill":
                     serve_row["flash_launches"][kern.name],
+                "phase 7: bf16 prefill, the mma.sync kernel named":
+                    serve_row["launches_mma"][kern.name],
                 "phase 7b: fp32 prefill": fp32_row["launches"][kern.name],
                 "phase 7b: fp32 prefill, the CUDA-core kernel named":
                     fp32_row["launches_cuda_core"][kern.name],
@@ -5283,8 +5371,8 @@ def main() -> int:
         """A kernel's non-causal case (phase 6, seamless's encoder)."""
         return {k: row[k] for k in (
             "case", "shape", "dtype", "aligned", "max_abs_err",
-            "limit_share", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "causal_plain_vs_kernel")}
+            "limit_share", "ms", "previous_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "causal_plain_vs_kernel")}
 
     out.append({
         "name": FLASH_WGMMA.name, "route": "cuda",
@@ -5309,18 +5397,22 @@ def main() -> int:
             "bound_ms", "bound_simt_ms", "bound_by", "library_ms", "shape",
             "dtype")},
         "noncausal": noncausal(flash_rows["seamless_encoder", "float32"])})
-    simt_row = flash_rows["h2o_danube3_unaligned", "bfloat16"]
+    mma_row = flash_rows["h2o_danube3_unaligned", "bfloat16"]
     out.append({
-        "name": FLASH_SIMT.name, "route": "cuda",
-        "source": flash_src + "flash_attention.cu",
-        "replaces": FLASH_SIMT.replaces,
-        "launches": fp32_row["launches_cuda_core"][FLASH_SIMT.name],
-        "launches_path": "phase 7b: the fp32 prefill with this kernel "
-                         "named in the 3xTF32 kernel's place",
-        "launches_by_path": flash_paths(FLASH_SIMT),
-        **{k: simt_row[k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape", "dtype", "aligned")},
+        "name": FLASH_MMA.name, "route": "cuda",
+        "source": flash_src + "flash_attention_mma.cu",
+        "replaces": FLASH_MMA.replaces,
+        "launches": serve_row["launches_mma"][FLASH_MMA.name],
+        "launches_path": "phase 7: the bf16 prefill with this kernel "
+                         "named in the wgmma kernel's place",
+        "launches_by_path": flash_paths(FLASH_MMA),
+        "previous": {"name": FLASH_SIMT.name,
+                     "source": flash_src + "flash_attention.cu",
+                     "launches_by_path": flash_paths(FLASH_SIMT)},
+        **{k: mma_row[k] for k in (
+            "max_abs_err", "limit_share", "ms", "previous_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "shape", "dtype",
+            "aligned", "moved_back_plain_vs_kernel")},
         "noncausal": noncausal(
             flash_rows["seamless_encoder_unaligned", "bfloat16"])})
 
@@ -5361,6 +5453,7 @@ def main() -> int:
         "serve_prefill_ms": serve_row["prefill_ms"],
         "serve_decode_p50_ms": serve_row["decode_p50_ms"],
         "flash_ms_est": flash_launches * flash_main["ms"],
+        "serve_prefill_mma_ms": serve_row["prefill_mma_ms"],
         "fp32_prefill_ms": fp32_row["prefill_ms"],
         "fp32_prefill_cuda_core_ms": fp32_row["prefill_cuda_core_ms"],
         "fp32_prefill_flash_share": fp32_dev["flash_share"],

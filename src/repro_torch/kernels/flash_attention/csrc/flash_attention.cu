@@ -19,13 +19,14 @@
 // byte, far above the ~295 where the card turns compute-bound.  The
 // least time is the flops at the bf16 tensor-core peak (about 0.1 ms).
 //
-// What this design does about it.  It is the simple, right version:
-// fp32 FMA on the CUDA cores (67 TFLOP/s at best, a fifteenth of the
-// tensor-core rate), so it stays well off the bound.  The tensor-core
-// kernels (flash_attention_sm90.cu for 16-bit inputs,
-// flash_attention_tf32x3.cu for fp32) take the inputs whose head dims are
-// multiples of 8 on 16-byte-aligned pointers; this one takes the rest, of
-// any of the three dtypes.  Within that:
+// What this design does about it.  It is the simple, right version, the
+// port's first: fp32 FMA on the CUDA cores (67 TFLOP/s at best, a
+// fifteenth of the tensor-core rate), so it stays well off the bound.  It
+// is on no route: the tensor-core kernels take every input
+// (flash_attention_sm90.cu 16-bit ones that TMA takes,
+// flash_attention_mma.cu every other 16-bit one, flash_attention_tf32x3.cu
+// every fp32 one), and this one runs only when named (variant "simt"), as
+// the yardstick they are timed against.  Within that:
 //   * one 256-thread block per (64-row query tile, head, batch); the loop
 //     over KV tiles inside the block takes the place of the TPU's
 //     sequential kv grid axis, and nothing carries between blocks;

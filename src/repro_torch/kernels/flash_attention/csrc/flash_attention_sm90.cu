@@ -61,7 +61,8 @@
 //
 // dtype code: 1 bf16, 2 fp16 (q, k, v and out share it).  D and Dv up to
 // 256 and multiples of 8, the pointers 16-byte aligned (TMA's strides and
-// addresses); the wrapper sends anything else to the CUDA-core kernel.
+// addresses); the wrapper sends any other 16-bit input to the mma.sync
+// kernel (flash_attention_mma.cu), which realigns its loads in registers.
 // The tensor maps are built on the host at each launch with
 // cuTensorMapEncodeTiled (link with -lcuda).  The entry returns
 // cudaGetLastError(), or -CUresult if a map cannot be encoded.

@@ -52,13 +52,17 @@
 //     8 neighbouring output columns of each row at the end;
 //   * a ring of two K/V stages in shared memory filled by cp.async.cg
 //     16-byte copies (rows past S zero-filled): the copies of the next
-//     tile overlap this tile's products.  Row strides are 16 (Q, K) and
+//     tile overlap this tile's products.  fp32 is always 4-byte aligned,
+//     so where a pointer is off 16 bytes or a head dim is not a multiple
+//     of 8 the same ring is filled by 4-byte cp.async.ca copies (template
+//     CW, chosen at each launch): four times the copy instructions, the
+//     same tiles and products.  Row strides are 16 (Q, K) and
 //     4 (V) words mod 32, so the float4 fragment loads hit every bank once
 //     a quarter-warp.  Tiles are split in registers as they are read, not
 //     stored twice: shared memory's bandwidth is the scarcer;
 //   * head dims are padded with zeros: the contraction to a multiple of
-//     16 (D = 120 contracts over 128), Dv to groups of 32 columns (120:
-//     128, the last 8 computed and not written).  Dv above 128 is split
+//     16 (D = 120 contracts over 128, D = 15 over 16), Dv to groups of 32
+//     columns (120: 128, the last 8 computed and not written).  Dv above 128 is split
 //     across blocks (blockIdx.y = head x column chunk), each recomputing
 //     S for its chunk, so that O takes at most 64 registers a thread;
 //   * KV tiles of 32 keys: 108 KB of shared memory at D = 128, so two
@@ -82,9 +86,8 @@
 // the softmax, and the 8 warps an SM (registers and shared memory allow
 // no more) do not hide their latency.
 //
-// D and Dv up to 256 and multiples of 8, the pointers 16-byte aligned (the
-// copies' rule); the wrapper sends anything else to the CUDA-core kernel.
-// The entry returns cudaGetLastError().
+// D and Dv up to 256, any; every fp32 input the wrapper takes.  The entry
+// returns cudaGetLastError().
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libflash_tf32x3.so
@@ -107,12 +110,21 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, bypassing L1; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
+// CW bytes global -> shared, zero-filled when !valid: 16 bypassing L1
+// (cp.async.cg), 4 through it (cp.async.ca; cg copies only 16).
+template <int CW>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         bool valid) {
+  if constexpr (CW == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    static_assert(CW == 4, "the copies are 16 or 4 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -164,7 +176,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[4],
   for (int i = 0; i < 4; ++i) acc[i] += t[i];
 }
 
-// A thread's walk over the (row, 16-byte chunk) pieces of a tile: it
+// A thread's walk over the (row, chunk) pieces of a tile: it
 // starts at piece threadIdx.x and steps by the block, with no division
 // a piece.
 struct Walk {
@@ -176,9 +188,10 @@ __device__ __forceinline__ Walk make_walk(int chunks) {
           kThreads / chunks, kThreads % chunks, chunks};
 }
 
-// Copy rows [row0, row0 + rows) x [0, 4 * w.chunks) of a strided fp32
-// source into shared memory (row stride ld words) in 16-byte pieces; rows
-// past S are zero-filled.
+// Copy rows [row0, row0 + rows) x [0, CW / 4 * w.chunks) of a strided
+// fp32 source into shared memory (row stride ld words) in CW-byte pieces;
+// rows past S are zero-filled.
+template <int CW>
 __device__ __forceinline__ void load_rows(float* dst, int ld,
                                           const float* __restrict__ src,
                                           int64_t row_stride, int row0,
@@ -187,8 +200,8 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
   while (r < rows) {
     const int s = row0 + r;
     const bool ok = s < S;
-    cp_async16(smem_u32(dst + r * ld + 4 * c),
-               src + (ok ? (int64_t)s * row_stride : 0) + 4 * c, ok);
+    cp_async<CW>(smem_u32(dst + r * ld + CW / 4 * c),
+                 src + (ok ? (int64_t)s * row_stride : 0) + CW / 4 * c, ok);
     r += w.r_step;
     c += w.c_step;
     if (c >= w.chunks) {
@@ -198,8 +211,9 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
   }
 }
 
-// NQ: 32-column groups of the block's dv chunk (1 .. 4).
-template <int NQ>
+// NQ: 32-column groups of the block's dv chunk (1 .. 4); CW: the copies'
+// bytes, 16 where every row start is 16-byte aligned, else 4.
+template <int NQ, int CW>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_tf32x3_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
@@ -248,13 +262,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int c = vw; c < DVC; ++c) Vs[r * VS + c] = 0.f;
 
   // Q with the first tile, then a group a stage: kStages groups in flight
-  const Walk wk = make_walk(D / 4), wv = make_walk(vw / 4);
-  load_rows(Qs, QS, qb, q_rs, q0, kBM, wk, S);
+  const Walk wk = make_walk(D * 4 / CW), wv = make_walk(vw * 4 / CW);
+  load_rows<CW>(Qs, QS, qb, q_rs, q0, kBM, wk, S);
   for (int st = 0; st < kStages; ++st) {
     const int tile = t_begin + st;
     if (tile < t_end) {
-      load_rows(Ks + st * kBN * QS, QS, kb, k_rs, tile * kBN, kBN, wk, S);
-      load_rows(Vs + st * kBN * VS, VS, vb, v_rs, tile * kBN, kBN, wv, S);
+      load_rows<CW>(Ks + st * kBN * QS, QS, kb, k_rs, tile * kBN, kBN, wk, S);
+      load_rows<CW>(Vs + st * kBN * VS, VS, vb, v_rs, tile * kBN, kBN, wv, S);
     }
     cp_async_commit();                // an empty group keeps the count
   }
@@ -404,10 +418,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     __syncthreads();                  // every warp is done with the stage
     if (tile + kStages < t_end) {
-      load_rows(Ks + stage * kBN * QS, QS, kb, k_rs, (tile + kStages) * kBN,
-                kBN, wk, S);
-      load_rows(Vs + stage * kBN * VS, VS, vb, v_rs, (tile + kStages) * kBN,
-                kBN, wv, S);
+      load_rows<CW>(Ks + stage * kBN * QS, QS, kb, k_rs,
+                    (tile + kStages) * kBN, kBN, wk, S);
+      load_rows<CW>(Vs + stage * kBN * VS, VS, vb, v_rs,
+                    (tile + kStages) * kBN, kBN, wv, S);
     }
     cp_async_commit();                // an empty group keeps the count
   }
@@ -428,7 +442,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int a = 0; a < NQ; ++a) {
       const int col = 32 * a + 8 * t;
-      if (col >= vw) continue;        // vw is a multiple of 8
+      if (col >= vw) continue;
+      if constexpr (CW == 4) {        // rows of any Dv: one word a store
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          if (col + m < vw) orow[col + m] = acc[a][m % 4][2 * hh + m / 4] / denom;
+        continue;
+      }
+      // vw is a multiple of 8 and the rows 16-byte aligned
       float4 lo, hi;
       lo.x = acc[a][0][2 * hh] / denom;
       lo.y = acc[a][1][2 * hh] / denom;
@@ -444,7 +465,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int NQ>
+template <int NQ, int CW>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int KH, int D, int Dv, float scale, int window,
            int causal, int n_chunks, cudaStream_t stream) {
@@ -452,7 +473,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const size_t smem =
       sizeof(float) * ((size_t)(kBM + kStages * kBN) * QS +
                        (size_t)kStages * kBN * (32 * NQ + 4));
-  auto kern = flash_fwd_tf32x3_kernel<NQ>;
+  auto kern = flash_fwd_tf32x3_kernel<NQ, CW>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -469,28 +490,36 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q (B, S, H, D), k (B, S, KH, D), v (B, S, KH, Dv), out (B, S, H, Dv),
-// fp32, contiguous and 16-byte aligned; H a multiple of KH; D and Dv
-// multiples of 8 up to 256; window < 0 is GLOBAL.  dtype must be 0 (fp32).
+// fp32 and contiguous; H a multiple of KH; D and Dv up to 256; window < 0
+// is GLOBAL.  dtype must be 0 (fp32).  16-byte copies where D and Dv are
+// multiples of 8 and every pointer is 16-byte aligned, 4-byte ones else.
 int flash_attention_fwd_tf32x3(const void* q, const void* k, const void* v,
                                void* o, int B, int S, int H, int KH, int D,
                                int Dv, float scale, int window, int causal,
                                int dtype, void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || D <= 0 || Dv <= 0 ||
-      D > kMaxDim || Dv > kMaxDim || D % 8 != 0 || Dv % 8 != 0 || dtype != 0)
+      D > kMaxDim || Dv > kMaxDim || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
-    return (int)cudaErrorMisalignedAddress;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(o);
+  if (ptrs % 4) return (int)cudaErrorMisalignedAddress;
+  const bool wide = ptrs % 16 == 0 && D % 8 == 0 && Dv % 8 == 0;
   // Dv in chunks of at most 128 columns, each a whole number of 32-column
   // groups
   const int n_chunks = (Dv + kDvChunk - 1) / kDvChunk;
   const int groups = ((Dv + n_chunks - 1) / n_chunks + 31) / 32;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (groups) {
-    case 1: return launch<1>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
-    case 2: return launch<2>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
-    case 3: return launch<3>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
-    case 4: return launch<4>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
+  switch (groups * (wide ? 1 : -1)) {
+    case 1: return launch<1, 16>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
+    case 2: return launch<2, 16>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
+    case 3: return launch<3, 16>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
+    case 4: return launch<4, 16>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
+    case -1: return launch<1, 4>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
+    case -2: return launch<2, 4>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
+    case -3: return launch<3, 4>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
+    case -4: return launch<4, 4>(q, k, v, o, B, S, H, KH, D, Dv, scale, window, causal, n_chunks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

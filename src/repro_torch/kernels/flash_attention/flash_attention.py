@@ -1,10 +1,13 @@
 """Launch the flash-attention forward CUDA kernels, the ports of
-``flash_attention_fwd_pallas``: ``csrc/flash_attention_sm90.cu`` (wgmma
-on the tensor cores, TMA-fed K/V ring) for bf16 and fp16,
-``csrc/flash_attention_tf32x3.cu`` (mma.sync on the tensor cores in
-3xTF32, cp.async-fed K/V ring) for fp32, and ``csrc/flash_attention.cu``
-(fp32 FMA on the CUDA cores) for what neither takes: head dims that are
-not multiples of 8, or a pointer off 16 bytes.
+``flash_attention_fwd_pallas``, all on the tensor cores:
+``csrc/flash_attention_sm90.cu`` (wgmma, TMA-fed K/V ring) for bf16 and
+fp16 with head dims that are multiples of 8 on 16-byte-aligned pointers,
+``csrc/flash_attention_mma.cu`` (mma.sync, loads staged through
+registers and realigned there) for every other bf16 and fp16 input, and
+``csrc/flash_attention_tf32x3.cu`` (mma.sync in 3xTF32, cp.async-fed
+K/V ring of 16- or 4-byte copies) for every fp32 input.  The first
+design, ``csrc/flash_attention.cu`` (fp32 FMA on the CUDA cores), is on
+no route: it runs only when named, ``variant="simt"``.
 
 ``flash_variant`` makes the choice from dtype, head dims and alignment
 before launch; it is not a fallback: on a CUDA tensor the chosen kernel
@@ -13,14 +16,14 @@ loaded with ``ctypes`` by ``kernels/build.py``; nothing here runs at
 import.  The wrapper checks device, dtype, shapes and contiguity,
 raises on what the kernels do not take, allocates the output, launches
 on PyTorch's current stream without synchronising, and counts the
-launch in ``FLASH_WGMMA.launches``, ``FLASH_TF32X3.launches`` or
-``FLASH_SIMT.launches``.
+launch in the kernel's ``launches`` (``FLASH_WGMMA``, ``FLASH_MMA``,
+``FLASH_TF32X3``, ``FLASH_SIMT``).
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,7 +33,7 @@ from repro_torch.kernels.flash_attention.ref import GLOBAL
 
 #: the largest head dim the kernels take (q/k and v alike)
 MAX_HEAD_DIM = 256
-VARIANTS = ("wgmma", "tf32x3", "simt")
+VARIANTS = ("wgmma", "tf32x3", "mma", "simt")
 
 _p, _i32 = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, ctypes.c_float,
@@ -46,16 +49,21 @@ LIB_SM90 = CudaLibrary(_CSRC / "flash_attention_sm90.cu",
 LIB_TF32X3 = CudaLibrary(_CSRC / "flash_attention_tf32x3.cu",
                          "flash_attention_tf32x3",
                          {"flash_attention_fwd_tf32x3": _ARGS})
-LIBS = (LIB_SM90, LIB_TF32X3, LIB)
+# + the load width (``load_width``) before the stream
+LIB_MMA = CudaLibrary(_CSRC / "flash_attention_mma.cu", "flash_attention_mma",
+                      {"flash_attention_fwd_mma": [*_ARGS[:-1], _i32, _p]})
+LIBS = (LIB_SM90, LIB_TF32X3, LIB_MMA, LIB)
 
 _REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:89"
 FLASH_WGMMA = CudaKernel("flash_attention_fwd_wgmma", LIB_SM90,
                          "flash_attention_fwd_sm90", _REPLACES)
 FLASH_TF32X3 = CudaKernel("flash_attention_fwd_tf32x3", LIB_TF32X3,
                           "flash_attention_fwd_tf32x3", _REPLACES)
+FLASH_MMA = CudaKernel("flash_attention_fwd_mma", LIB_MMA,
+                       "flash_attention_fwd_mma", _REPLACES)
 FLASH_SIMT = CudaKernel("flash_attention_fwd_simt", LIB,
                         "flash_attention_fwd", _REPLACES)
-KERNELS = (FLASH_WGMMA, FLASH_TF32X3, FLASH_SIMT)
+KERNELS = (FLASH_WGMMA, FLASH_TF32X3, FLASH_MMA, FLASH_SIMT)
 #: the kernel that launches for each of ``VARIANTS``
 BY_VARIANT = dict(zip(VARIANTS, KERNELS))
 
@@ -63,18 +71,40 @@ BY_VARIANT = dict(zip(VARIANTS, KERNELS))
 def flash_variant(dtype: torch.dtype, d: int, dv: int,
                   aligned: bool = True) -> str:
     """The kernel that takes q/k head dim ``d`` and v head dim ``dv`` in
-    ``dtype``.  With both dims multiples of 8 and every pointer 16-byte
-    ``aligned`` (the rules of TMA and of 16-byte ``cp.async`` copies):
-    "wgmma" for bf16 and fp16, "tf32x3" for fp32.  Anything else goes
-    to the CUDA-core kernel, "simt"."""
+    ``dtype``: "tf32x3" for every fp32 input; for bf16 and fp16 "wgmma"
+    with both dims multiples of 8 and every pointer 16-byte ``aligned``
+    (TMA's rules), "mma" for the rest.  The CUDA-core kernel, "simt",
+    is on no route."""
     if dtype not in DTYPE_CODES:
         raise TypeError(f"the kernels take fp32, bf16 or fp16, got {dtype}")
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"head dims {d}, {dv}: the kernels take up to "
                          f"{MAX_HEAD_DIM}")
+    if dtype == torch.float32:
+        return "tf32x3"
     if d % 8 or dv % 8 or not aligned:
-        return "simt"
-    return "tf32x3" if dtype == torch.float32 else "wgmma"
+        return "mma"
+    return "wgmma"
+
+
+def load_width(addresses: Sequence[int], esz: int, h: int, kh: int, d: int,
+               dv: int) -> int:
+    """The widest load, in bytes, that the "mma" kernel can make of every
+    row of q, k and v (``addresses``: their data pointers; ``esz``
+    bytes an element; ``h`` query and ``kh`` KV heads).  16 where every
+    row stride (h·d, kh·d and kh·dv elements) is a multiple of 16 bytes:
+    the rows one block reads then start at one offset mod 16, and the
+    kernel reads the aligned 16-byte words over a row and shifts them
+    into place.  Else the widest of 8, 4 and 2 that divides every
+    pointer and the bytes of both head dims, so that every row start is
+    aligned to it."""
+    if all(n * esz % 16 == 0 for n in (h * d, kh * d, kh * dv)):
+        return 16
+    for w in (8, 4):
+        if all(a % w == 0 for a in addresses) and (d * esz) % w == 0 \
+                and (dv * esz) % w == 0:
+            return w
+    return 2
 
 
 def check_one_length(q: torch.Tensor, k: torch.Tensor,
@@ -99,8 +129,8 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """q (B,S,K,G,D), k (B,S,K,D), v (B,S,K,Dv) -> (B,S,K,G,Dv) in v's
     dtype: self-attention over positions ``arange(S)``.  ``variant``
     names the kernel (``flash_variant``'s choice by default); "simt"
-    takes every input, "wgmma" and "tf32x3" only what ``flash_variant``
-    gives them."""
+    takes every input, "mma" every bf16 and fp16 input, "tf32x3" every
+    fp32 input, "wgmma" only what ``flash_variant`` gives it."""
     for name, t, nd in (("q", q, 5), ("k", k, 4), ("v", v, 4)):
         if t.dim() != nd:
             raise ValueError(f"{name} must be {nd}-D, got {tuple(t.shape)}")
@@ -126,7 +156,9 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     variant = variant or chosen
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r} (one of {VARIANTS})")
-    if variant != "simt" and variant != chosen:
+    takes = (variant in (chosen, "simt")
+             or (variant == "mma" and q.dtype != torch.float32))
+    if not takes:
         raise ValueError(f"the {variant} kernel does not take {q.dtype} at "
                          f"D={D}, Dv={Dv}, aligned={aligned}")
     if window != GLOBAL and window < 0:
@@ -139,8 +171,11 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     kernel = BY_VARIANT[variant]
     out = torch.empty((B, S, K, G, Dv), dtype=v.dtype, device=q.device)
-    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, S, K * G, K, D, Dv, float(np.float32(scale)),
-                  int(window), int(bool(causal)), code,
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    width = ((load_width(ptrs, q.element_size(), K * G, K, D, Dv),)
+             if variant == "mma" else ())
+    kernel.launch(*ptrs, out.data_ptr(), B, S, K * G, K, D, Dv,
+                  float(np.float32(scale)), int(window), int(bool(causal)),
+                  code, *width,
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out

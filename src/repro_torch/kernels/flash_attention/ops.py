@@ -2,9 +2,9 @@
 the (B, S, K, G, D) layout of ``models/attention.py``.
 
 ``impl="auto"`` launches a CUDA kernel for a CUDA tensor (the wgmma one
-for bf16 and fp16, the 3xTF32 one for fp32, the CUDA-core one for what
-neither takes: ``flash_variant``) and runs the plain PyTorch version
-(``ref.py``) for a CPU tensor; ``impl="cuda"``
+for bf16 and fp16 that TMA takes, the mma.sync one for every other bf16
+and fp16 input, the 3xTF32 one for fp32: ``flash_variant``) and runs the
+plain PyTorch version (``ref.py``) for a CPU tensor; ``impl="cuda"``
 always launches (and raises for a CPU tensor); ``impl="torch"`` always
 runs the plain version.  On a CUDA tensor the kernel either runs or
 raises: nothing falls back to the plain version.

@@ -7,7 +7,7 @@ from pathlib import Path
 from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.fedavg import fedavg
 from repro_torch.kernels.flash_attention.flash_attention import (
-    LIB as FA_LIB, LIB_SM90, LIBS as FA_LIBS)
+    LIB as FA_LIB, LIB_MMA, LIB_SM90, LIB_TF32X3, LIBS as FA_LIBS)
 
 
 def test_a_changed_extra_flag_changes_the_library_path(tmp_path):
@@ -39,3 +39,14 @@ def test_the_tensor_core_flash_source_links_libcuda():
     for lib in FA_LIBS:
         assert isinstance(lib.src, Path) and lib.src.is_file()
     assert LIB_SM90.path() != FA_LIB.path()
+
+
+def test_the_four_flash_sources_are_built_each_into_its_own_library():
+    """The mma.sync source is built with the others at first use (and by
+    ``chip_smoke.py``'s phase 2, from ``LIBS``): plain flags, a library
+    of its own."""
+    assert set(FA_LIBS) == {LIB_SM90, LIB_TF32X3, LIB_MMA, FA_LIB}
+    assert LIB_MMA.extra_flags == ()
+    assert LIB_MMA.src.name == "flash_attention_mma.cu"
+    assert len({lib.path() for lib in FA_LIBS}) == 4
+    assert LIB_MMA.path().name.startswith("libflash_attention_mma-")

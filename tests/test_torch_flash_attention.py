@@ -10,8 +10,8 @@ encoder attends without a causal mask).  Shapes and tolerances are those of
 sums in another order), 2e-2 in bf16 and fp16 (one 16-bit rounding of
 the output), plus the head dims of the port's configs (120 and 256) and
 hymba-1.5b's group of 5 query heads a KV head.
-The choice among the three CUDA kernels is a pure function of dtype,
-head dims and alignment, tested here; the kernels themselves are held
+The choice among the CUDA kernels is a pure function of dtype, head
+dims and alignment, tested here; the kernels themselves are held
 against the plain version on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).
 """
@@ -144,9 +144,12 @@ def test_dispatch_sends_16_bit_inputs_to_the_tensor_cores(dim):
                                           (128, 128, False)])
 def test_dispatch_sends_what_tma_cannot_take_to_the_cuda_cores(d, dv,
                                                                aligned):
-    """TMA needs 16-byte strides and addresses: head dims that are not
-    multiples of 8, or a pointer off 16 bytes, go to the CUDA-core kernel."""
-    assert flash_variant(torch.bfloat16, d, dv, aligned) == "simt"
+    """TMA needs 16-byte strides and addresses: 16-bit inputs with head
+    dims that are not multiples of 8, or a pointer off 16 bytes, go to the
+    mma.sync kernel on the tensor cores, which realigns its loads; the
+    CUDA-core kernel is on no route."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert flash_variant(dtype, d, dv, aligned) == "mma"
 
 
 def test_dispatch_raises_over_256_and_on_other_dtypes():

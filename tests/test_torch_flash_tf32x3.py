@@ -194,13 +194,15 @@ def test_dispatch_sends_fp32_to_the_tensor_cores(dim):
                                           (128, 128, False)])
 def test_dispatch_sends_what_cp_async_cannot_take_to_the_cuda_cores(
         d, dv, aligned):
-    """Head dims that are not multiples of 8, or a pointer off 16 bytes:
-    the CUDA-core kernel, chosen before launch."""
-    assert flash_variant(torch.float32, d, dv, aligned) == "simt"
+    """Head dims that are not multiples of 8, or a pointer off 16 bytes,
+    which the 16-byte copies cannot take: fp32 is always 4-byte aligned,
+    so the 3xTF32 kernel takes them with its 4-byte copies, chosen at
+    launch; the CUDA-core kernel is on no route."""
+    assert flash_variant(torch.float32, d, dv, aligned) == "tf32x3"
 
 
 def test_the_kernel_is_registered_with_the_others():
-    assert VARIANTS == ("wgmma", "tf32x3", "simt")
+    assert VARIANTS == ("wgmma", "tf32x3", "mma", "simt")
     assert BY_VARIANT["tf32x3"] is FLASH_TF32X3
     assert FLASH_TF32X3 in KERNELS and LIB_TF32X3 in LIBS
     assert FLASH_TF32X3.lib is LIB_TF32X3
@@ -222,10 +224,16 @@ def test_wrapper_refuses_tf32x3_for_16_bit_inputs(dtype):
 
 
 def test_wrapper_refuses_tf32x3_for_what_only_the_cuda_cores_take():
+    """What only the CUDA-core kernel took (a head dim of 12, a view one
+    element into its buffer) the 3xTF32 kernel now takes: each gets as
+    far as the device check, named or chosen."""
+    before = [kern.launches for kern in KERNELS]
     q, k = torch.zeros(1, 8, 1, 1, 12), torch.zeros(1, 8, 1, 12)
-    with pytest.raises(ValueError, match="tf32x3 kernel does not take"):
-        flash_attention_fwd_cuda(q, k, k, scale=1.0, variant="tf32x3")
-    # fp32 the kernel takes gets as far as the device check
-    q, k = torch.zeros(1, 8, 1, 1, 16), torch.zeros(1, 8, 1, 16)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        flash_attention_fwd_cuda(q, k, k, scale=1.0, variant="tf32x3")
+    buf = torch.zeros(1 + 8 * 16)
+    views = (buf[1:].view(1, 8, 1, 1, 16), buf[1:].view(1, 8, 1, 16))
+    for q, k in ((q, k), views, (torch.zeros(1, 8, 1, 1, 16),
+                                 torch.zeros(1, 8, 1, 16))):
+        for variant in ("tf32x3", None):
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                flash_attention_fwd_cuda(q, k, k, scale=1.0, variant=variant)
+    assert [kern.launches for kern in KERNELS] == before

@@ -1,5 +1,6 @@
-"""The CUDA kernels (fedavg, the three flash-attention forwards, causal
-and not, int8 quantize and dequantize) against their plain PyTorch
+"""The CUDA kernels (fedavg, the four flash-attention forwards, causal
+and not, on aligned and misaligned views and odd head dims, int8
+quantize and dequantize) against their plain PyTorch
 versions, the encoder-decoder and frontend LMs against the CPU, the MoE
 ep block forward and backward, the Mamba block and its decode, the
 sharded SSM scan forward and backward, and the fused int8 round of each
@@ -24,8 +25,8 @@ from repro_torch.kernels.fedavg import ref as tref
 from repro_torch.kernels.build import nvcc
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import (
-    FLASH_SIMT, FLASH_TF32X3, FLASH_WGMMA, KERNELS as FA_KERNELS,
-    LIBS as FA_LIBS, flash_attention_fwd_cuda)
+    FLASH_MMA, FLASH_SIMT, FLASH_TF32X3, FLASH_WGMMA, KERNELS as FA_KERNELS,
+    LIBS as FA_LIBS, flash_attention_fwd_cuda, load_width)
 from repro_torch.kernels.quantize import ops as qops
 from repro_torch.kernels.quantize.quantize import (KERNELS as Q_KERNELS,
                                                    LIB as Q_LIB,
@@ -125,13 +126,17 @@ FLASH_SHAPES = [
 #: seamless-m4t-large-v2's encoder self-attention: 16 heads, MHA, D 64
 #: over its 512 frames, without a causal mask
 SEAMLESS_ENCODER = (4, 512, 16, 1, 64, -1)
-#: (kernel, dtype, element offset): an offset of 1 puts a 16-bit tensor
-#: off 16 bytes, which only the CUDA-core kernel takes
-VARIANT_INPUTS = [(FLASH_WGMMA, "bfloat16", 0), (FLASH_WGMMA, "float16", 0),
-                  (FLASH_TF32X3, "float32", 0), (FLASH_SIMT, "bfloat16", 1)]
+#: (kernel, dtype, element offset, variant named): an offset of 1 puts
+#: a 16-bit tensor off 16 bytes, which the mma.sync kernel takes; the
+#: CUDA-core kernel runs only when named
+VARIANT_INPUTS = [(FLASH_WGMMA, "bfloat16", 0, None),
+                  (FLASH_WGMMA, "float16", 0, None),
+                  (FLASH_TF32X3, "float32", 0, None),
+                  (FLASH_MMA, "bfloat16", 1, None),
+                  (FLASH_SIMT, "bfloat16", 1, "simt")]
 
 
-def _flash_inputs(card, wire, B, S, K, G, D, offset=0):
+def _flash_inputs(card, wire, B, S, K, G, D, offset=0, Dv=None):
     g = torch.Generator(device=card).manual_seed(S)
 
     def mk(*shape):
@@ -141,7 +146,22 @@ def _flash_inputs(card, wire, B, S, K, G, D, offset=0):
         buf = torch.randn(n + offset, generator=g, device=card)
         return buf.to(WIRE[wire])[offset:].view(shape)
 
-    return mk(B, S, K, G, D), mk(B, S, K, D), mk(B, S, K, D)
+    return mk(B, S, K, G, D), mk(B, S, K, D), mk(B, S, K, Dv or D)
+
+
+def _held(q, k, v, kern, variant=None, **kw):
+    """One launch of ``kern`` (``flash_variant``'s choice, or ``variant``
+    named) against the plain version at the dtype's tolerance."""
+    before = [kn.launches for kn in FA_KERNELS]
+    got = (flash_attention_fwd_cuda(q, k, v, variant=variant, **kw)
+           if variant else flash_attention(q, k, v, **kw))
+    want = flash_attention(q, k, v, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert [kn.launches - b for kn, b in zip(FA_KERNELS, before)] == \
+        [int(kn is kern) for kn in FA_KERNELS]
+    assert bool(torch.isfinite(got).all())
+    tol = 2e-6 if q.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -183,25 +203,98 @@ def test_cuda_core_flash_kernel_matches_plain_version_in_fp32(card, B, S, K,
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,K,G,D,window", [SEAMLESS_ENCODER]
                          + FLASH_SHAPES)
-@pytest.mark.parametrize("kern,wire,offset", VARIANT_INPUTS,
+@pytest.mark.parametrize("kern,wire,offset,variant", VARIANT_INPUTS,
                          ids=["wgmma-bf16", "wgmma-fp16", "tf32x3-fp32",
-                              "simt-bf16-off16"])
+                              "mma-bf16-off16", "simt-bf16-off16-named"])
 def test_noncausal_flash_kernel_matches_plain_version(card, B, S, K, G, D,
                                                       window, kern, wire,
-                                                      offset):
+                                                      offset, variant):
     """``causal=False`` (an encoder's self-attention) on each of the
-    three kernels, chosen by ``flash_variant``, at seamless's encoder
-    shape and the causal cases' shapes."""
+    three routed kernels, chosen by ``flash_variant``, and on the
+    CUDA-core kernel named, at seamless's encoder shape and the causal
+    cases' shapes."""
     q, k, v = _flash_inputs(card, wire, B, S, K, G, D, offset)
-    kw = dict(window=window, causal=False, scale=D ** -0.5)
-    before = [kn.launches for kn in FA_KERNELS]
-    got = flash_attention(q, k, v, **kw)
-    want = flash_attention(q, k, v, impl="torch", **kw)
-    torch.cuda.synchronize()
-    assert [kn.launches - b for kn, b in zip(FA_KERNELS, before)] == \
-        [int(kn is kern) for kn in FA_KERNELS]
-    tol = 2e-6 if wire == "float32" else 2e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _held(q, k, v, kern, variant, window=window, causal=False,
+          scale=D ** -0.5)
+
+
+#: (D, Dv): odd and misaligned head dims, Dv unlike D, and the widest
+MMA_DIMS = [(15, 15), (36, 36), (120, 120), (256, 256), (120, 36),
+            (36, 120)]
+#: (window, causal): causal, windowed, non-causal
+MMA_MASKS = [(-1, True), (100, True), (-1, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", range(1, 8))
+@pytest.mark.parametrize("wire", ["bfloat16", "float16"])
+def test_mma_flash_kernel_matches_plain_version_at_every_offset(card, wire,
+                                                                offset):
+    """16-bit views 1-7 elements into their buffers: off 16 bytes, so
+    ``flash_variant`` sends them to the mma.sync kernel, which realigns
+    each row in registers."""
+    q, k, v = _flash_inputs(card, wire, 2, 333, 2, 2, 120, offset)
+    _held(q, k, v, FLASH_MMA, window=100, causal=True, scale=120 ** -0.5)
+    # the same views' rows at D = 64: every element offset mod 16 bytes
+    q, k, v = _flash_inputs(card, wire, 1, 200, 3, 2, 64, offset)
+    _held(q, k, v, FLASH_MMA, causal=False, scale=0.125)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 63, 2000])
+@pytest.mark.parametrize("window,causal", MMA_MASKS,
+                         ids=["causal", "windowed", "noncausal"])
+@pytest.mark.parametrize("D,Dv", MMA_DIMS)
+def test_mma_flash_kernel_matches_plain_version_at_any_head_dims(
+        card, D, Dv, window, causal, S):
+    """Head dims that are not multiples of 8 (any offset: "mma"), and
+    multiples of 8 off 16 bytes, with Dv unlike D, causal, windowed and
+    not, at one row, a ragged tile and the serve path's length."""
+    offset = 1 if D % 8 == 0 and Dv % 8 == 0 else 0
+    q, k, v = _flash_inputs(card, "bfloat16", 1, S, 2, 2, D, offset, Dv)
+    _held(q, k, v, FLASH_MMA, window=window, causal=causal,
+          scale=D ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv,G,offset,width", [
+    (120, 120, 2, 1, 16), (36, 36, 3, 0, 8), (36, 36, 3, 2, 4),
+    (18, 18, 3, 0, 4), (15, 15, 3, 0, 2), (36, 15, 3, 0, 2)])
+def test_mma_flash_kernel_at_every_load_width(card, D, Dv, G, offset, width):
+    """Each load width of the mma.sync kernel: row strides that are
+    multiples of 16 bytes are realigned (16); else the widest of 8, 4
+    and 2 that every row start allows."""
+    q, k, v = _flash_inputs(card, "float16", 2, 150, 1, G, D, offset, Dv)
+    assert load_width([t.data_ptr() for t in (q, k, v)], 2, G, 1, D,
+                      Dv) == width
+    _held(q, k, v, FLASH_MMA, window=40, causal=True, scale=D ** -0.5)
+
+
+@pytest.mark.gpu
+def test_mma_flash_kernel_named_on_aligned_inputs(card):
+    """Named, the mma.sync kernel takes what the wgmma kernel takes too
+    (phase 7's prefill names it so); fp32 it refuses."""
+    q, k, v = _flash_inputs(card, "bfloat16", 2, 700, 2, 3, 128)
+    _held(q, k, v, FLASH_MMA, variant="mma", causal=True, scale=128 ** -0.5)
+    q, k, v = _flash_inputs(card, "float32", 1, 8, 1, 1, 16)
+    with pytest.raises(ValueError, match="mma kernel does not take"):
+        flash_attention_fwd_cuda(q, k, v, scale=0.25, variant="mma")
+
+
+#: (D, Dv, element offset) of fp32 inputs the 16-byte copies cannot take
+TF32X3_NARROW = [(D, Dv, off) for D, Dv in [(120, 120), (256, 256), (15, 15),
+                                            (36, 120), (120, 36), (36, 36)]
+                 for off in range(4) if off or D % 8 or Dv % 8]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv,offset", TF32X3_NARROW)
+def test_tf32x3_flash_kernel_takes_any_fp32_input(card, D, Dv, offset):
+    """fp32 views off 16 bytes and head dims that are not multiples of
+    8: the 3xTF32 kernel's 4-byte copies, held at fp32's 2e-6."""
+    q, k, v = _flash_inputs(card, "float32", 1, 333, 2, 2, D, offset, Dv)
+    _held(q, k, v, FLASH_TF32X3, window=100, causal=True, scale=D ** -0.5)
+    _held(q, k, v, FLASH_TF32X3, causal=False, scale=D ** -0.5)
 
 
 @pytest.mark.gpu

@@ -404,6 +404,27 @@ on any fault; it imports nothing of the JAX package.  Phases:
    production cell's dry run (llama3.2-3b × train_4k × multi, 512
    ranks) is CPU work of a minute or two, run by
    ``python -m repro_torch.launch.dryrun``, not here.
+28. examples: each ``examples/*_torch.py`` as a user runs it, its
+   ``__main__`` in a fresh interpreter (``EXAMPLE_RUNNER``, which then
+   prints the fold kernels' launches in its process, each daemon's own
+   from its ``stats_reply`` just before the example reaps it, and each
+   round's wall): ``train_fl_lm`` at its ~100M config for 51 rounds
+   (FedAdam; the round-50 checkpoint into ``build/phase28_ckpt``), then
+   ``--resume --rounds 53`` (rounds 51-53 finite, the resumed round 50's
+   loss the first run's) in one lane; ``quickstart``,
+   ``elastic_scaling`` and ``fl_resnet_femnist`` in a second;
+   ``serve_gateway`` and ``serve_decode`` on llama3.2-3b and
+   internvl2-26b in a third; ``multinode`` in a fourth, the four and
+   the planted fault below at once (``--fast`` where the example takes
+   it).  Each must exit 0 with its OK line and the markers
+   of ``tests/test_torch_examples.py``; every daemon must be on the
+   card, and each example that folds there (``FOLDING_EXAMPLES``) must
+   launch the eager fold (in its process or its daemons); the
+   service's folded and queued updates must add up to its admitted
+   ones.  One ``example`` line a run (wall, launches, cold and
+   warm round, prefill and decode p50 / p99).  The planted fault: the
+   quickstart with ``CUDA_VISIBLE_DEVICES=""`` must exit non-zero with "no
+   CUDA device" (``example_fault``).
 The ``kernels`` line gives each fedavg kernel its launches by path:
 phase 5, phase 13's controller (0: the workers fold with numpy),
 phase 14 in netd and at the controller, phase 15, phase 16, phase 19,
@@ -420,6 +441,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -5140,6 +5162,267 @@ def model_launches(kern, model, phase=25):
             for label, row in model["rows"].items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the examples, as a user runs them
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples"
+#: runs an example's ``__main__`` (path and argv from the command line)
+#: as ``python examples/<name>_torch.py`` does, then prints its counts on
+#: one ``example_counts`` line: the fold kernels' launches in its process,
+#: each daemon's own (its ``stats_reply``, read just before the example
+#: reaps it) and each round's record and host wall (``run_round``;
+#: ``train_round``, whose record holds floats: the card has finished)
+EXAMPLE_RUNNER = r"""
+import json, runpy, sys, time
+from repro_torch.kernels.fedavg import fedavg as fed
+from repro_torch.runtime import netrt
+from repro_torch.runtime.trainer import FederatedTrainer, FusedFLTrainer
+
+daemons, addrs, rounds = [], {}, []
+spawn, reap = netrt.spawn_local_daemon, netrt.reap_local_daemon
+
+
+def stats(addr):
+    conn = netrt.connect(addr, timeout=30.0)
+    try:
+        conn.send("hello", {"role": "client"})
+        conn.recv_expect(("welcome",), 30.0)
+        conn.send("stats", {})
+        return conn.recv_expect(("stats_reply",), 30.0).meta
+    finally:
+        conn.close()
+
+
+def spawn_local_daemon(*args, **kw):
+    proc, addr = spawn(*args, **kw)
+    addrs[proc.pid] = addr
+    return proc, addr
+
+
+def reap_local_daemon(proc, **kw):
+    addr = addrs.pop(proc.pid, None)
+    if addr is not None and proc.poll() is None:
+        s = stats(addr)
+        daemons.append({k: s[k] for k in ("node", "device",
+                                          "kernel_launches")})
+    return reap(proc, **kw)
+
+
+def timed(cls, name, kind):
+    orig = getattr(cls, name)
+
+    def run(self, *args, **kw):
+        t0 = time.perf_counter()
+        rec = orig(self, *args, **kw)
+        rounds.append({"kind": kind, "wall_s": time.perf_counter() - t0,
+                       "round": int(rec["round"]),
+                       "loss": float(rec.get("loss", float("nan")))})
+        return rec
+
+    setattr(cls, name, run)
+
+
+netrt.spawn_local_daemon = spawn_local_daemon
+netrt.reap_local_daemon = reap_local_daemon
+timed(FederatedTrainer, "run_round", "session")
+timed(FusedFLTrainer, "train_round", "fused")
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("example_counts " + json.dumps({
+    "launches": {k.name: k.launches for k in fed.KERNELS},
+    "daemons": daemons, "rounds": rounds}))
+"""
+EXAMPLE_CKPT = ROOT / "build" / "phase28_ckpt"
+#: the examples whose folds run the fedavg kernels on the card (not
+#: multinode's: its daemons run shmproc, whose workers fold with numpy on
+#: the host, the node-top root's fold included, and its controller folds
+#: nothing)
+FOLDING_EXAMPLES = ("quickstart", "elastic_scaling", "fl_resnet_femnist",
+                    "serve_gateway")
+#: phase 28's runs, in four lanes that run at once (with the planted
+#: fault), each lane in order: (label, example, argv, lines its output
+#: must hold, timeout s).  A process's start (torch, a CUDA context) is
+#: most of a short example's wall; the 100M LM's lane is the longest.
+EXAMPLE_LANES = (
+    (("train_fl_lm", "train_fl_lm",
+      ["--rounds", "51", "--ckpt", str(EXAMPLE_CKPT)],
+      ("round   50 loss=", "final loss:"), 600),
+     ("train_fl_lm resumed", "train_fl_lm",
+      ["--rounds", "53", "--resume", "--ckpt", str(EXAMPLE_CKPT)],
+      ("resumed from round 50", "round   50 loss=", "round   52 loss="),
+      300)),
+    (("quickstart", "quickstart", ["--fast"],
+      ("quickstart OK", "model_version=2", "events="), 300),
+     ("elastic_scaling", "elastic_scaling", ["--fast"],
+      ("elastic_scaling OK", "node_lost", "node_joined"), 300),
+     ("fl_resnet_femnist", "fl_resnet_femnist", [],
+      ("fl_resnet_femnist OK",), 300)),
+    (("serve_gateway", "serve_gateway", ["--fast"],
+      ("done: two jobs, one fleet", "edge client: 8 updates pushed"), 300),
+     ("serve_decode llama3.2-3b", "serve_decode",
+      ["--arch", "llama3.2-3b"], ("serve_decode OK",), 300),
+     ("serve_decode internvl2-26b", "serve_decode",
+      ["--arch", "internvl2-26b"], ("serve_decode OK",), 300)),
+    (("multinode", "multinode", ["--fast"],
+      ("connected nodes: ['node0', 'node1']", "partial from mid@",
+       "client:", "done: cross-node rounds"), 300),),
+)
+
+
+def run_command(argv, timeout, env=None):
+    """-> (exit code, stdout, stderr, wall s).  Past ``timeout`` the
+    command gets SIGINT, so an example's ``finally`` reaps the daemons it
+    spawned (each in a session of its own), then SIGKILL; a timeout is a
+    failure."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGINT)
+        try:
+            out, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        raise AssertionError(f"{argv[-1]}: over {timeout} s\n{out[-3000:]}"
+                             f"\n{err[-3000:]}")
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def run_example(label, name, argv, markers, timeout):
+    """One example through ``EXAMPLE_RUNNER``: it must exit 0 and print
+    every marker.  -> its row (wall, launches, rounds, output)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    rc, out, err, wall = run_command(
+        [sys.executable, "-c", EXAMPLE_RUNNER,
+         str(EXAMPLES / f"{name}_torch.py"), *argv], timeout, env)
+    if rc != 0:
+        raise AssertionError(f"example {label} exited {rc}:\n{out[-3000:]}"
+                             f"\n{err[-3000:]}")
+    missing = [m for m in markers if m not in out]
+    if missing:
+        raise AssertionError(f"example {label} printed none of {missing}:"
+                             f"\n{out[-3000:]}")
+    counts = json.loads(out.split("example_counts ", 1)[1].splitlines()[0])
+    return {"label": label, "example": name, "argv": argv, "wall_s": wall,
+            **counts, "out": out}
+
+
+def example_row(run):
+    """The printed row: wall, fold launches, warm round (and the 100M
+    LM's tokens/s) or prefill and decode."""
+    row = {"label": run["label"], "wall_s": run["wall_s"],
+           "launches": run["launches"],
+           "daemons": run["daemons"]}
+    out = run["out"]
+    for kind in ("session", "fused"):
+        walls = [r["wall_s"] for r in run["rounds"] if r["kind"] == kind]
+        if walls:
+            row[f"{kind}_rounds"] = len(walls)
+            row[f"{kind}_cold_s"] = walls[0]
+            if len(walls) > 1:
+                row[f"{kind}_warm_s"] = float(np.median(walls[1:]))
+    if run["example"] == "train_fl_lm":
+        # the example's defaults: 8 sequences of 128 tokens a round
+        row["tokens_per_s_warm"] = 8 * 128 / row["fused_warm_s"]
+    if run["example"] == "serve_decode":
+        pre = re.search(r"prefill \d+x\d+: ([\d.]+) ms", out)
+        dec = re.search(r"p50=([\d.]+)ms p99=([\d.]+)ms", out)
+        row.update(prefill_ms=float(pre.group(1)),
+                   decode_p50_ms=float(dec.group(1)),
+                   decode_p99_ms=float(dec.group(2)))
+    if run["example"] == "serve_gateway":
+        m = dict(re.findall(r"(admitted|shed|duplicates|queued_now)=(\d+)",
+                            out))
+        row["ingress"] = {k: int(v) for k, v in m.items()}
+        row["folded"] = sum(int(c) for c in re.findall(r"cohort=(\d+)", out))
+        row["pipeline_overlap"] = float(
+            re.search(r"pipeline_overlap=([\d.]+)", out).group(1))
+        row["scrapes"] = int(re.search(r"monitor: (\d+) scrapes",
+                                       out).group(1))
+    return row
+
+
+def check_examples(rows, runs) -> None:
+    """Fold launches on the card in each example that folds; the resumed
+    run's rounds; the service's ingress accounted for."""
+    for label, row in rows.items():
+        run = runs[label]
+        if run["example"] in FOLDING_EXAMPLES:
+            folds = row["launches"]["eager_accumulate"] + sum(
+                d["kernel_launches"]["eager_accumulate"]
+                for d in row["daemons"])
+            if folds == 0:
+                raise AssertionError(f"example {label}: no fold kernel "
+                                     f"launched: {row}")
+        if any(not d["device"].startswith("cuda") for d in row["daemons"]):
+            raise AssertionError(f"example {label}: a daemon off the card: "
+                                 f"{row['daemons']}")
+    first, resumed = runs["train_fl_lm"], runs["train_fl_lm resumed"]
+    if [r["round"] for r in resumed["rounds"]] != [51, 52, 53] or not all(
+            np.isfinite(r["loss"]) for r in resumed["rounds"]):
+        raise AssertionError(f"the resumed run's rounds: {resumed['rounds']}")
+    # round 50's loss is taken before the server step, on the checkpoint's
+    # params and the same batch: the resumed run continues the first
+    was = first["rounds"][50]["loss"]
+    if abs(resumed["rounds"][0]["loss"] - was) > 1e-5 * abs(was):
+        raise AssertionError(f"resumed round 50's loss "
+                             f"{resumed['rounds'][0]['loss']} != {was}")
+    gw = rows["serve_gateway"]
+    if gw["folded"] + gw["ingress"]["queued_now"] != gw["ingress"]["admitted"]:
+        raise AssertionError(f"serve_gateway lost an update: {gw}")
+
+
+def planted_no_card():
+    """Phase 28's planted fault: the quickstart with no card visible must
+    exit non-zero with "no CUDA device", never falling back to the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    rc, out, err, wall = run_command(
+        [sys.executable, str(EXAMPLES / "quickstart_torch.py"), "--fast"],
+        120, env)
+    fault = {"rc": rc, "no_cuda_device": "no CUDA device" in err,
+             "wall_s": wall}
+    log("example_fault " + json.dumps(fault))
+    if rc == 0 or not fault["no_cuda_device"]:
+        raise AssertionError(f"the quickstart without a card: {fault}\n"
+                             f"{out[-2000:]}\n{err[-2000:]}")
+
+
+def phase_examples():
+    """Phase 28: every ``examples/*_torch.py`` on the card as a user runs
+    it (``EXAMPLE_LANES``; one ``example`` line as each ends), and the
+    planted fault beside them (``planted_no_card``)."""
+
+    def lane(runs_):
+        out = []
+        for run in runs_:
+            run = run_example(*run)
+            row = example_row(run)
+            log("example " + json.dumps(row))
+            out.append((run, row))
+        return out
+
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    runs, rows = {}, {}
+    try:
+        with ThreadPoolExecutor(len(EXAMPLE_LANES) + 1) as pool:
+            fault = pool.submit(planted_no_card)
+            for done in [pool.submit(lane, runs_) for runs_ in
+                         EXAMPLE_LANES]:
+                for run, row in done.result():
+                    runs[run["label"]], rows[run["label"]] = run, row
+            fault.result()
+    finally:
+        shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    check_examples(rows, runs)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5300,6 +5583,11 @@ def main() -> int:
     lap("27 sharded storage, dry run")
     phase_s["24-26 ranks"] -= rank27_s
     phase_s["27 sharded storage, dry run"] += rank27_s
+
+    # phase 28: the examples, each in processes of its own on this card
+    torch.cuda.empty_cache()
+    examples = phase_examples()
+    lap("28 examples")
 
     # phase 9: summary at the main paths' shapes (f32 wire; the lazy
     # round's largest burst for fedavg_accumulate_k): the phase-3 rows
@@ -5513,7 +5801,11 @@ def main() -> int:
         "publish_copy_ms": svc_row["publish_copy_ms"],
         "checkpoint_submit_ms": ckpt_row["submit_ms"],
         "checkpoint_write_ms": ckpt_row["write_ms"],
-        "torch_engine_speedup": speedup["speedup"]["torch"]}))
+        "torch_engine_speedup": speedup["speedup"]["torch"],
+        "examples_wall_s": {k: r["wall_s"] for k, r in examples.items()},
+        "train_fl_lm_warm_round_s": examples["train_fl_lm"]["fused_warm_s"],
+        "train_fl_lm_tokens_per_s": examples["train_fl_lm"][
+            "tokens_per_s_warm"]}))
     log(json.dumps({"kernels": out}))
     log(card)
     log(json.dumps({"ok": True, "device": {

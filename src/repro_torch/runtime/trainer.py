@@ -16,6 +16,7 @@ the JAX package's.  ``FusedFLTrainer`` runs the fused round of
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from collections import OrderedDict, deque
@@ -66,6 +67,24 @@ from repro_torch.runtime.events import (
 # ===========================================================================
 
 
+@contextlib.contextmanager
+def _onednn_off_on_the_cpu(device: torch.device) -> Iterator[None]:
+    """Client SGD on the CPU runs with oneDNN off: its conv backward
+    crashes torch's CPU build (2.13.0+cpu) at odd batch sizes with more
+    than one thread, which a Dirichlet shard's last batch often is.  The
+    flag is read when the backward runs, so it covers the whole loop.
+    On the card nothing changes."""
+    if device.type != "cpu":
+        yield
+        return
+    was = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = was
+
+
 @dataclass
 class ClientRuntime:
     """A training client: local SGD for ``epochs`` over its shard."""
@@ -84,16 +103,19 @@ class ClientRuntime:
         device = tree_leaves(params)[0].device
         p = params
         n = 0
-        for batch in self.dataset.batches(batch_size, epochs=epochs,
-                                          seed=int(rng.integers(1 << 30))):
-            tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-            leaves, treedef = tree_flatten(p)
-            leaves = [l.detach().requires_grad_(True) for l in leaves]
-            loss, _ = model.loss(tree_unflatten(treedef, leaves), tb)
-            grads = torch.autograd.grad(loss, leaves)
-            p, _ = sgd_apply(p, tree_unflatten(treedef, list(grads)), {},
-                             lr=lr)
-            n += len(batch["labels"])
+        with _onednn_off_on_the_cpu(device):
+            for batch in self.dataset.batches(
+                    batch_size, epochs=epochs,
+                    seed=int(rng.integers(1 << 30))):
+                tb = {k: torch.from_numpy(v).to(device)
+                      for k, v in batch.items()}
+                leaves, treedef = tree_flatten(p)
+                leaves = [l.detach().requires_grad_(True) for l in leaves]
+                loss, _ = model.loss(tree_unflatten(treedef, leaves), tb)
+                grads = torch.autograd.grad(loss, leaves)
+                p, _ = sgd_apply(p, tree_unflatten(treedef, list(grads)),
+                                 {}, lr=lr)
+                n += len(batch["labels"])
         if n == 0:
             return None
         delta = tree_map(lambda new, old: new.float() - old.float(), p, params)

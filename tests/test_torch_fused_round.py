@@ -203,6 +203,69 @@ def test_fused_trainer_matches_jax_over_three_rounds():
     assert t._cache.misses == 1 and len(t._cache) == 1
 
 
+@pytest.mark.parametrize("opt,lr", [("fedadam", 3e-3), ("fedavgm", 0.7)])
+def test_server_opt_rounds_and_restart_match_jax(opt, lr, tmp_path):
+    """FedAdam (``examples/train_fl_lm.py``'s default, lr 3e-3) and
+    FedAvgM (lr 0.7) over three rounds, with params and server state
+    carried across from the JAX trainer, at the fedavg test's limits.
+    Then each package restores its round-2 checkpoint into a new trainer
+    and takes one more round: ``maybe_restore`` rebuilds the server
+    optimizer's state from scratch in both (moments zero, ``step`` 0),
+    so the resumed round starts Adam's bias correction again.  Its loss
+    and update norm are held at the same limits; its params are not: a
+    first Adam step moves each element by ``lr · d / (|d| + eps)``, which
+    turns fp32 rounding of a near-zero ``d`` into a step of up to lr."""
+    cfg = _cfg()
+    agg_kw = dict(hierarchy="flat", timing="eager", num_microbatches=4,
+                  server_opt=opt, server_lr=lr)
+    moments = {"fedadam": ("m", "v"), "fedavgm": ("momentum",)}[opt]
+
+    def trainers():
+        jt = JaxTrainer(cfg, jax_host_mesh(), JaxAgg(**agg_kw),
+                        opts=_tiny(JaxOptions),
+                        checkpoint_dir=str(tmp_path / "jax"),
+                        checkpoint_every=2)
+        t = FusedFLTrainer(cfg, make_host_mesh(), AggregationConfig(**agg_kw),
+                           opts=_tiny(ModelOptions), device="cpu",
+                           checkpoint_dir=str(tmp_path / "torch"),
+                           checkpoint_every=2)
+        return jt, t
+
+    jt, t = trainers()
+    jt.init(seed=0)
+    t.params = lm_params_from_jax(_np_tree(jt.params), device="cpu")
+    t.server_state = tree_from_jax(_np_tree(jt.server_state), device="cpu")
+    assert set(t.server_state) == {"step", *moments}
+    loader = CohortTokenLoader(cfg.vocab_size, seq_len=32, n_cohorts=4)
+    for r in range(3):
+        batch = loader.round_batch(16, r)
+        want, got = jt.train_round(batch), t.train_round(batch)
+        assert abs(got["loss"] - want["loss"]) < 1e-5, (r, got, want)
+        assert abs(got["update_norm"] / want["update_norm"] - 1) < 1e-4
+    _close(t.params, jt.params, rtol=1e-4, atol=1e-5)
+    for key in moments:
+        _close(t.server_state[key], jt.server_state[key], rtol=1e-4,
+               atol=1e-5)
+    assert int(t.server_state["step"]) == int(jt.server_state["step"]) == 3
+    jt.ckpt.wait()
+    t.ckpt.wait()
+
+    jt2, t2 = trainers()
+    assert jt2.maybe_restore() and t2.maybe_restore()
+    assert jt2.round_id == t2.round_id == 2
+    assert int(jt2.server_state["step"]) == int(t2.server_state["step"]) == 0
+    for key in moments:
+        assert not any(np.asarray(l).any()
+                       for l in jax.tree.leaves(jt2.server_state[key]))
+        assert not any(bool(l.any()) for l in tree_leaves(t2.server_state[key]))
+    _close(t2.params, jt2.params, rtol=1e-4, atol=1e-5)
+    batch = loader.round_batch(16, 2)
+    want, got = jt2.train_round(batch), t2.train_round(batch)
+    assert abs(got["loss"] - want["loss"]) < 1e-5, (got, want)
+    assert abs(got["update_norm"] / want["update_norm"] - 1) < 1e-4
+    assert int(t2.server_state["step"]) == int(jt2.server_state["step"]) == 1
+
+
 def test_fused_trainer_defaults_to_the_card_and_refuses_checkpoints(
         tmp_path):
     """On the card unless told; ``checkpoint_dir=`` is taken (checkpoints
